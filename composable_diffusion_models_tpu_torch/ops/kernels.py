@@ -1,0 +1,230 @@
+"""The serving path's two kernels, their plain PyTorch versions and wrappers.
+
+``short_seq_attention`` and ``fused_dit_block`` are hand-written CUDA C++
+for Hopper (``csrc/``), built with nvcc at first use and called through
+ctypes. Each wrapper validates its inputs, and then:
+
+* for tensors on the CPU, returns its plain version (``*_ref``);
+* for tensors on the CUDA card, launches the kernel on the current stream,
+  raises if the launch fails, and adds one to its ``launches`` count.
+
+A CUDA tensor never takes the plain version. The plain versions follow the
+TPU kernels' rounding sites (composable_diffusion_models_tpu/ops/
+pallas_kernels.py): fp32 scores and softmax, probabilities rounded to the
+input type before the value product, GEMMs accumulated in fp32 with the
+bias added in fp32 and one rounding after it, residual adds in the stream
+type. On the card, compare them with TF32 off
+(``torch.backends.cuda.matmul.allow_tf32 = False``, likewise cudnn).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ._build import library
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+# fused_dit_block's shared-memory layout constants (csrc/fused_dit_block.cu)
+_KT, _NC, _PAD = 32, 128, 8
+_ATTN_HEAD_DIMS = (8, 16, 32, 64)
+_BLOCK_HEAD_DIMS = (16, 32)
+
+
+# ------------------------------------------------------------ plain versions
+def ln_f32(x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm without affine: fp32 stats (one-pass variance, clamped at
+    0), eps 1e-6, result in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    return ((xf - mu) * torch.rsqrt(var + 1e-6)).to(x.dtype)
+
+
+def short_seq_attention_ref(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Plain version of :func:`short_seq_attention`."""
+    b, t, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // n_heads
+    q, k, v = qkv.reshape(b, t, 3, n_heads, hd).float().unbind(2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / float(hd) ** 0.5)
+    a = torch.softmax(s, dim=-1).to(qkv.dtype).float()
+    o = torch.einsum("bhqk,bkhd->bqhd", a, v)
+    return o.reshape(b, t, d).to(qkv.dtype)
+
+
+def fused_dit_block_ref(tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2, b2,
+                        n_heads: int) -> torch.Tensor:
+    """Plain version of :func:`fused_dit_block`."""
+    cdt = tok.dtype
+
+    def gemm(a, w, bias):
+        return (a.float() @ w.float() + bias.float()).to(cdt)
+
+    x = tok
+    qkv = gemm(ln_f32(x), w_qkv, b_qkv)
+    x = x + gemm(short_seq_attention_ref(qkv, n_heads), w_pr, b_pr)
+    h = F.gelu(gemm(ln_f32(x), w1, b1).float(), approximate="tanh").to(cdt)
+    return x + gemm(h, w2, b2)
+
+
+# ------------------------------------------------------------------ checks
+def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_stream_tensor(name: str, t: torch.Tensor) -> None:
+    if t.dim() != 3:
+        raise ValueError(f"{name}: expected (B, T, C), got {tuple(t.shape)}")
+    if t.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {t.dtype} not supported "
+                         f"(float32 or bfloat16)")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: device {t.device} not supported")
+
+
+def _stream_ptr(t: torch.Tensor) -> int:
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensor on {t.device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t: torch.Tensor) -> int:
+    p = t.data_ptr()
+    if p % 16:
+        raise ValueError("kernel inputs must be 16-byte aligned")
+    return p
+
+
+# ------------------------------------------------------ short_seq_attention
+@functools.cache
+def _attention_fn():
+    fn = library("short_seq_attention").short_seq_attention_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def short_seq_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Multi-head self-attention from a packed (B, T, 3D) qkv tensor
+    (layout [q | k | v] x [head] x [head_dim]) -> (B, T, D): softmax over
+    keys of q k^T / sqrt(hd), times v. No mask, no bias.
+
+    Kernel limits: float32 or bfloat16, contiguous, head width in
+    (8, 16, 32, 64), any B and T."""
+    _check_stream_tensor("qkv", qkv)
+    b, t, d3 = qkv.shape
+    if d3 % 3 or (d3 // 3) % n_heads:
+        raise ValueError(f"qkv width {d3} is not 3 x n_heads x head_dim "
+                         f"for n_heads={n_heads}")
+    d = d3 // 3
+    hd = d // n_heads
+    if hd not in _ATTN_HEAD_DIMS:
+        raise ValueError(f"head width {hd} not in {_ATTN_HEAD_DIMS}")
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+    if qkv.device.type == "cpu":
+        return short_seq_attention_ref(qkv, n_heads)
+    out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
+    if b * t == 0:
+        return out
+    rc = _attention_fn()(_DTYPE_CODE[qkv.dtype], _ptr(qkv), _ptr(out), b, t,
+                         n_heads, hd, 1.0 / float(hd) ** 0.5,
+                         _stream_ptr(qkv))
+    if rc:
+        raise RuntimeError(f"short_seq_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    short_seq_attention.launches += 1
+    return out
+
+
+short_seq_attention.launches = 0
+
+
+# ---------------------------------------------------------- fused_dit_block
+def block_smem_bytes(dtype: torch.dtype, rows: int, d: int) -> int:
+    """Shared memory of one fused_dit_block block holding ``rows`` token
+    rows: the residual and LayerNorm tiles [rows][D + 8], the 4D-wide
+    buffer [rows][4D + 8] and one weight k-tile [32][128 + 8]."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    return esize * (rows * (d + _PAD) * 2 + rows * (4 * d + _PAD)
+                    + _KT * (_NC + _PAD))
+
+
+def block_rows(dtype: torch.dtype, t: int, d: int) -> int:
+    """Token rows a fused_dit_block block holds (whole images of T rows):
+    64 in bfloat16 (the tensor-core tiling); in float32 the largest of 64,
+    32, 16 whose tile fits in shared memory. Raises if no tile holds one
+    image."""
+    for rows in ((64,) if dtype == torch.bfloat16 else (64, 32, 16)):
+        if t <= rows and block_smem_bytes(dtype, rows, d) <= _SMEM_LIMIT:
+            return rows
+    raise ValueError(f"fused_dit_block: an image of {t} tokens x {d} in "
+                     f"{dtype} does not fit one block's shared memory")
+
+
+@functools.cache
+def _block_fn():
+    fn = library("fused_dit_block").fused_dit_block_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_dit_block(tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2, b2,
+                    n_heads: int) -> torch.Tensor:
+    """One adaLN-folded DiT block over ``tok`` (B, T, D) with pre-folded
+    weights: returns x + mlp(x) where x = tok + attn(tok), in tok's dtype.
+
+    Kernel limits: float32 or bfloat16 (every weight in tok's dtype,
+    contiguous), D a multiple of 32, head width D / n_heads in (16, 32), and
+    one image per block (:func:`block_rows`): T <= 64, and in float32
+    T * D small enough for shared memory (T <= 32 at D = 256)."""
+    _check_stream_tensor("tok", tok)
+    b, t, d = tok.shape
+    if d % 32 or d % n_heads or d // n_heads not in _BLOCK_HEAD_DIMS:
+        raise ValueError(f"fused_dit_block: D={d} must be a multiple of 32 "
+                         f"with head width D/n_heads in {_BLOCK_HEAD_DIMS}")
+    rows = block_rows(tok.dtype, t, d)
+    for name, w, shape in (("w_qkv", w_qkv, (d, 3 * d)),
+                           ("b_qkv", b_qkv, (3 * d,)),
+                           ("w_pr", w_pr, (d, d)), ("b_pr", b_pr, (d,)),
+                           ("w1", w1, (d, 4 * d)), ("b1", b1, (4 * d,)),
+                           ("w2", w2, (4 * d, d)), ("b2", b2, (d,)),
+                           ("tok", tok, (b, t, d))):
+        _check(name, w, shape, tok.dtype, tok.device)
+    if tok.device.type == "cpu":
+        return fused_dit_block_ref(tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1,
+                                   w2, b2, n_heads)
+    out = torch.empty_like(tok)
+    if b * t == 0:
+        return out
+    hd = d // n_heads
+    rc = _block_fn()(_DTYPE_CODE[tok.dtype], _ptr(tok), _ptr(w_qkv),
+                     _ptr(b_qkv), _ptr(w_pr), _ptr(b_pr), _ptr(w1), _ptr(b1),
+                     _ptr(w2), _ptr(b2), _ptr(out), b, t, d, hd, rows,
+                     1.0 / float(hd) ** 0.5, _stream_ptr(tok))
+    if rc:
+        raise RuntimeError(f"fused_dit_block kernel launch failed: CUDA "
+                           f"error {rc}")
+    fused_dit_block.launches += 1
+    return out
+
+
+fused_dit_block.launches = 0
