@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port of the DiT serving path on one CUDA card.
+"""Drives the PyTorch port's serving paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,17 +8,29 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
  1. the card's name and power limit (nvidia-smi);
  2. builds the CUDA kernels from ``composable_diffusion_models_tpu_torch/
     csrc`` with nvcc (ptxas register/spill report printed);
- 3. holds each kernel against its plain PyTorch version on the card, in
-    float32 and bfloat16, at the serving shape and at ragged ones, and
-    times kernel, plain version and (attention) PyTorch's SDPA;
- 4. the main path: 3 composed ``dit_p14_d256_l4`` experts (random weights
+ 3. holds each of the four kernels against its plain PyTorch version on the
+    card, in float32 and bfloat16, at the serving shapes and at ragged
+    ones, and times kernel, plain version and, where one PyTorch call (or
+    two, for GroupNorm + SiLU) computes the same function, that call;
+ 4. the DiT path: 3 composed ``dit_p14_d256_l4`` experts (random weights
     from a seed), 50-step DDIM, batch 2048, bf16, through
     ``entry.sample``: finite output, exactly 600 ``fused_dit_block``
     launches, images/s, the same sampler on the plain versions, and the
     float32 kernel path against the float32 plain path;
  5. the device's busy share over a few sampler steps (torch.profiler);
- 6. the second path, ``fused_block=False``, through ``short_seq_attention``;
- 7. one ``kernels`` JSON line, then the result line.
+ 6. the DiT's second path, ``fused_block=False``, through
+    ``short_seq_attention``;
+ 7. the UNet shapes-composition path: 2 composed class-conditional
+    ``unet64`` experts, 64 x 64 x 3, batch 128, 50 steps, bf16, through
+    ``entry.sample_shapes``: exactly 800 ``groupnorm_silu`` launches,
+    images/s, ``fused_gn=False``, kernel path against plain path, profile;
+ 8. the UNet cross-attention CFG path: one dual-conditioned ``unet64``,
+    28 x 28 x 3, batch 64 (192 rows), float32 as the preset computes,
+    through ``entry.sample_cfg``: exactly 250 ``flash_attention`` and 400
+    ``groupnorm_silu`` launches, ``flash_attn=True`` against ``False``,
+    kernel path against plain path, profile. The preset's 1000 sampler
+    steps are cut to 50 here for time;
+ 9. one ``kernels`` JSON line, then the result line.
 
 Exits with code 2 and prints no result where there is no CUDA card.
 """
@@ -39,6 +51,24 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense bf16 tensor cores
 BATCH, N_STEPS, N_STEPS_SECOND = 2048, 50, 10
 MAIN = (BATCH, 4, 256, 8)          # (B, T, D, heads) of every block launch
 SHAPES = [MAIN, (37, 16, 64, 2), (5, 49, 64, 4)]
+# UNet paths: (B, H, W, C) of the groupnorm_silu launches of one forward
+# (A: 2 experts x batch 128 at 64 x 64; B: 192 rows at 28 x 28), then ragged
+A_BATCH, B_BATCH, UNET_STEPS = 128, 64, 50
+GN_MAIN = (A_BATCH, 64, 64, 64)
+GN_SHAPES = [(GN_MAIN, 8), ((A_BATCH, 32, 32, 64), 8),
+             ((A_BATCH, 32, 32, 128), 8), ((A_BATCH, 16, 16, 128), 8),
+             ((A_BATCH, 16, 16, 256), 8), ((3 * B_BATCH, 28, 28, 64), 8),
+             ((3 * B_BATCH, 14, 14, 128), 8), ((3 * B_BATCH, 7, 7, 256), 8),
+             ((3, 7, 7, 24), 4), ((2, 5, 3, 8), 2), ((1, 9, 9, 1024), 8)]
+GN_TIMED = GN_SHAPES[:6]
+# flash_attention: (B, H, Nq, Nk, D); path B's 5 sites per forward (3
+# distinct shapes), then the shapes of the JAX package's own kernel tests
+FA_MAIN = (3 * B_BATCH, 4, 784, 2, 16)
+FA_SHAPES = [FA_MAIN, (3 * B_BATCH, 4, 196, 2, 32), (3 * B_BATCH, 4, 49, 2, 64),
+             (2, 2, 128, 128, 64), (2, 2, 256, 256, 32), (1, 2, 128, 2, 32),
+             (1, 1, 128, 384, 32), (1, 2, 128, 200, 32), (3, 2, 77, 33, 128),
+             (4, 8, 4096, 4096, 64)]
+FA_TIMED = FA_SHAPES[:3] + FA_SHAPES[-1:]
 
 
 def log(msg: str) -> None:
@@ -156,12 +186,285 @@ def check_kernels(kernels):
     return rows
 
 
-def run_sampler(entry, params, x_init, n_steps, **kw):
+def max_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got.float() - ref.float()).abs().max())
+
+
+def check_unet_kernels(kernels, attention):
+    """Phase 3 for groupnorm_silu and flash_attention. Returns the numbers
+    of the main-path shapes for the JSON line: groupnorm_silu in bf16 (path
+    A serves bf16), flash_attention in float32 (path B computes in it)."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(2)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        es = torch.empty((), dtype=dtype).element_size()
+        for shape, groups in GN_SHAPES:
+            c = shape[-1]
+            x = (torch.randn(*shape, generator=gen) * 2 + 0.5).to("cuda", dtype)
+            scale = (1 + 0.1 * torch.randn(c, generator=gen)).cuda()
+            bias = (0.1 * torch.randn(c, generator=gen)).cuda()
+            got = kernels.groupnorm_silu(x, scale, bias, groups)
+            torch.cuda.synchronize()
+            ref = kernels.groupnorm_silu_ref(x, scale, bias, groups)
+            err = max_err(got, ref)
+            # float32: summation order of the statistics only
+            tol = tolerance(dtype, ref, 1e-5)
+            log(f"groupnorm_silu {name} {shape} G={groups}: "
+                f"max_abs_err={err:.3e} tol={tol:.3e}")
+            if not err <= tol:
+                fail("groupnorm_silu disagrees with its plain version")
+            if (shape, groups) not in GN_TIMED:
+                continue
+            ms = time_ms(lambda: kernels.groupnorm_silu(x, scale, bias, groups))
+            plain = time_ms(
+                lambda: kernels.groupnorm_silu_ref(x, scale, bias, groups))
+            unfused = time_ms(lambda: kernels.groupnorm_silu_split(
+                (x,), scale, bias, groups))
+            # the library's two calls, on the same memory seen as NCHW
+            x_nchw, sc_t, bi_t = x.permute(0, 3, 1, 2), scale.to(dtype), \
+                bias.to(dtype)
+            lib = time_ms(lambda: F.silu(F.group_norm(x_nchw, groups, sc_t,
+                                                      bi_t, 1e-5)))
+            nbytes = 2 * x.numel() * es + 2 * c * 4
+            bms, by = bound_ms(12 * x.numel(), nbytes, torch.float32)
+            log(f"  groupnorm_silu {name} {shape}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, PyTorch-op composition (fused_gn=False) "
+                f"{unfused:.4f} ms, F.group_norm + F.silu (two calls) "
+                f"{lib:.4f} ms, bound {bms:.4f} ms ({by}; "
+                f"{nbytes / 1e6:.2f} MB)")
+            if shape == GN_MAIN:
+                rows[("groupnorm_silu", dtype)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib)
+                # what the wrapper's choice of row splits per sample is
+                # worth: the same launch at fixed split counts
+                sweep = []
+                for splits in (1, 2, 4, 8, 16, 32):
+                    with mock.patch.object(kernels, "gn_splits",
+                                           lambda *a, n=splits: n):
+                        sweep.append(f"{splits}: " + format(time_ms(
+                            lambda: kernels.groupnorm_silu(
+                                x, scale, bias, groups)), ".4f"))
+                log(f"  groupnorm_silu {name} {shape} ms by row splits "
+                    f"(wrapper picks "
+                    f"{kernels.gn_splits(dtype, shape[0], shape[1] * shape[2], c)}"
+                    f"): {', '.join(sweep)}")
+        for b, h, nq, nk, d in FA_SHAPES:
+            # (B, N, H, D) memory seen as (B, H, N, D): the layout the
+            # UNet's cross-attention hands over
+            q, k, v = (torch.randn(b, n, h, d, generator=gen).to("cuda", dtype)
+                       .transpose(1, 2) for n in (nq, nk, nk))
+            got = attention.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            ref = attention.flash_attention_ref(q, k, v)
+            err = max_err(got, ref)
+            got_c = attention.flash_attention(q.contiguous(), k.contiguous(),
+                                              v.contiguous())
+            err = max(err, max_err(got_c, ref))
+            tol = tolerance(dtype, ref, 1e-5)
+            log(f"flash_attention {name} B={b} H={h} Nq={nq} Nk={nk} D={d}: "
+                f"max_abs_err={err:.3e} tol={tol:.3e} (strided and "
+                f"contiguous)")
+            if not err <= tol:
+                fail("flash_attention disagrees with its plain version")
+            if (b, h, nq, nk, d) not in FA_TIMED:
+                continue
+            iters = 3 if nq * nk > 1e6 else 20
+            ms = time_ms(lambda: attention.flash_attention(q, k, v), iters, 1)
+            plain = time_ms(lambda: attention.flash_attention_ref(q, k, v),
+                            iters, 1)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                          iters, 1)
+            flops = 4 * b * h * nq * nk * d
+            nbytes = es * b * h * d * (2 * nq + 2 * nk)
+            bms, by = bound_ms(flops, nbytes, dtype)
+            log(f"  flash_attention {name} Nq={nq} Nk={nk} D={d}: kernel "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
+                f"bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB)")
+            if (b, h, nq, nk, d) == FA_MAIN:
+                rows[("flash_attention", dtype)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib)
+    return rows
+
+
+def timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = entry.sample(params, x_init, n_steps=n_steps, **kw)
+    out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def run_sampler(entry, params, x_init, n_steps, **kw):
+    return timed(lambda: entry.sample(params, x_init, n_steps=n_steps, **kw))
+
+
+def profile_steps(label: str, fn) -> None:
+    """Device busy share over a short window, and the device kernels that
+    take the most time there, by name."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, sec = timed(fn)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, calls = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.device_time, calls + 1)
+    busy_us = sum(us for us, _ in by_name.values())
+    log(f"profile ({label}): {sum(c for _, c in by_name.values())} device "
+        f"kernels, {busy_us / 1e3:.3f} ms busy of {sec * 1e3:.3f} ms wall "
+        f"-> busy share {busy_us / 1e6 / sec:.3f}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the top 16, and the port's own kernels wherever they rank
+    for rank, (name, (us, calls)) in enumerate(ranked):
+        if rank < 16 or "cdm::" in name:
+            log(f"  {us / busy_us:6.1%} {us / 1e3:9.3f} ms {calls:5d} x  "
+                f"{name[:110]}")
+
+
+def reset_launches(kernels, attention) -> None:
+    for fn in (kernels.fused_dit_block, kernels.short_seq_attention,
+               kernels.groupnorm_silu, attention.flash_attention):
+        fn.launches = 0
+
+
+def read_launches(kernels, attention) -> dict:
+    return {"fused_dit_block": kernels.fused_dit_block.launches,
+            "short_seq_attention": kernels.short_seq_attention.launches,
+            "groupnorm_silu": kernels.groupnorm_silu.launches,
+            "flash_attention": attention.flash_attention.launches}
+
+
+def unet_paths(card, convert, entry, unet, kernels, attention) -> dict:
+    """Phases 7 and 8. Returns the kernel launches of the two main runs."""
+    gen = torch.Generator().manual_seed(3)
+    launches = {}
+
+    # 7. path A: shapes composition, 2 experts, bf16
+    trees = [convert.from_flax(convert.init_params(entry.SHAPES_UNET, seed=i))
+             for i in range(entry.N_SHAPES_EXPERTS)]
+    params = entry.load_unets(trees)  # once, as a server would
+    params32 = entry.load_unets(trees, dtype=torch.float32)
+    x_a = torch.randn(A_BATCH, 64, 64, 3, generator=gen).cuda()
+    labels = torch.randint(0, 3, (entry.N_SHAPES_EXPERTS, A_BATCH),
+                           generator=gen)
+
+    def shapes(p, n_steps=UNET_STEPS, **kw):
+        return entry.sample_shapes(p, x_a, labels, n_steps=n_steps, **kw)
+
+    shapes(params, 2)  # warm-up: cuDNN's choice of algorithms, caches
+    reset_launches(kernels, attention)
+    out, sec = timed(lambda: shapes(params))
+    launches["A"] = read_launches(kernels, attention)
+    gflop = entry.unet_gflop_per_image(entry.SHAPES_UNET, 64, 64) * \
+        entry.N_SHAPES_EXPERTS * UNET_STEPS
+    log(f"path A (shapes composition, batch {A_BATCH}, {UNET_STEPS} steps, "
+        f"bf16): {tuple(out.shape)} in {sec:.3f} s = {A_BATCH / sec:.1f} "
+        f"images/s, {sec / UNET_STEPS * 1e3:.3f} ms/step ({card}); "
+        f"{gflop:.1f} GFLOP/image -> {gflop * A_BATCH / sec / 1e3:.1f} "
+        f"TFLOP/s achieved; launches {launches['A']}")
+    if not bool(torch.isfinite(out).all()):
+        fail("path A output is not finite")
+    if tuple(out.shape) != (A_BATCH, 64, 64, 3):
+        fail("path A output has the wrong shape")
+    want = 8 * entry.N_SHAPES_EXPERTS * UNET_STEPS
+    if launches["A"]["groupnorm_silu"] != want:
+        fail(f"groupnorm_silu launched {launches['A']['groupnorm_silu']} "
+             f"times on path A, expected {want}")
+    _, sec_unfused = timed(lambda: shapes(params, fused_gn=False))
+    out_again, sec_again = timed(lambda: shapes(params))
+    log(f"  fused_gn=False (PyTorch-op GroupNorm + SiLU): "
+        f"{A_BATCH / sec_unfused:.1f} images/s, "
+        f"{sec_unfused / UNET_STEPS * 1e3:.3f} ms/step; fused_gn=True "
+        f"again: {A_BATCH / sec_again:.1f} images/s")
+    if not torch.equal(out, out_again):
+        fail("path A is not deterministic")
+    with mock.patch.object(unet, "groupnorm_silu",
+                           kernels.groupnorm_silu_ref):
+        out_plain, sec_plain = timed(lambda: shapes(params))
+    diff = (out - out_plain).abs()
+    log(f"  plain version: {A_BATCH / sec_plain:.1f} images/s; kernel vs "
+        f"plain bf16 after {UNET_STEPS} steps: mean |diff| "
+        f"{float(diff.mean()):.4e}, max {float(diff.max()):.4e}")
+    # bf16 held on the mean, as for the DiT path (phase 4)
+    if not float(diff.mean()) <= 0.05:
+        fail("bf16 path A drifts from the plain path")
+    out32, sec32 = timed(lambda: shapes(params32, dtype=torch.float32))
+    with mock.patch.object(unet, "groupnorm_silu",
+                           kernels.groupnorm_silu_ref):
+        ref32, _ = timed(lambda: shapes(params32, dtype=torch.float32))
+    err32 = max_err(out32, ref32)
+    log(f"  float32 kernel path vs float32 plain path, {UNET_STEPS} steps: "
+        f"max |diff| {err32:.3e} (tol 1e-3: summation order only); float32 "
+        f"path {A_BATCH / sec32:.1f} images/s")
+    if not err32 <= 1e-3:
+        fail("float32 path A disagrees with the plain path")
+    profile_steps(f"path A, 3 steps, batch {A_BATCH}",
+                  lambda: shapes(params, 3))
+    del params32, out32, ref32
+
+    # 8. path B: cross-attention CFG, one model, float32 (the preset's)
+    tree = convert.from_flax(convert.init_params(entry.CFG_UNET, seed=7))
+    p_b, = entry.load_unets([tree], dtype=torch.float32)
+    p_b16, = entry.load_unets([tree], dtype=torch.bfloat16)
+    x_b = torch.randn(B_BATCH, 28, 28, 3, generator=gen).cuda()
+
+    def cfg(p=p_b, n_steps=UNET_STEPS, **kw):
+        return entry.sample_cfg(p, x_b, 3, 1, guidance=(2.0, 2.0),
+                                n_steps=n_steps, **kw)
+
+    cfg(n_steps=2)
+    reset_launches(kernels, attention)
+    out, sec = timed(cfg)
+    launches["B"] = read_launches(kernels, attention)
+    gflop = entry.unet_gflop_per_image(entry.CFG_UNET, 28, 28) * 3 * UNET_STEPS
+    log(f"path B (cross-attention CFG, batch {B_BATCH} = {3 * B_BATCH} rows, "
+        f"{UNET_STEPS} steps (the preset's 1000 cut to {UNET_STEPS}), "
+        f"float32): {tuple(out.shape)} in {sec:.3f} s = "
+        f"{B_BATCH / sec:.1f} images/s, {sec / UNET_STEPS * 1e3:.3f} "
+        f"ms/step ({card}); {gflop:.1f} GFLOP/image -> "
+        f"{gflop * B_BATCH / sec / 1e3:.1f} TFLOP/s achieved; launches "
+        f"{launches['B']}")
+    if not bool(torch.isfinite(out).all()):
+        fail("path B output is not finite")
+    if tuple(out.shape) != (B_BATCH, 28, 28, 3):
+        fail("path B output has the wrong shape")
+    if launches["B"]["flash_attention"] != 5 * UNET_STEPS:
+        fail(f"flash_attention launched {launches['B']['flash_attention']} "
+             f"times on path B, expected {5 * UNET_STEPS}")
+    if launches["B"]["groupnorm_silu"] != 8 * UNET_STEPS:
+        fail(f"groupnorm_silu launched {launches['B']['groupnorm_silu']} "
+             f"times on path B, expected {8 * UNET_STEPS}")
+    out_e, sec_e = timed(lambda: cfg(flash_attn=False))
+    err_e = max_err(out, out_e)
+    log(f"  flash_attn=False (einsum pair): {B_BATCH / sec_e:.1f} images/s; "
+        f"flash vs einsum float32 after {UNET_STEPS} steps: max |diff| "
+        f"{err_e:.3e} (tol 1e-3: both float32, summation order only)")
+    if not err_e <= 1e-3:
+        fail("flash_attn=True disagrees with flash_attn=False")
+    with mock.patch.object(unet, "groupnorm_silu",
+                           kernels.groupnorm_silu_ref), \
+            mock.patch.object(unet, "flash_attention",
+                              attention.flash_attention_ref):
+        ref, _ = timed(cfg)
+    err = max_err(out, ref)
+    log(f"  float32 kernel path vs float32 plain path, {UNET_STEPS} steps: "
+        f"max |diff| {err:.3e} (tol 1e-3: summation order only)")
+    if not err <= 1e-3:
+        fail("float32 path B disagrees with the plain path")
+    out16, sec16 = timed(lambda: cfg(p_b16, dtype=torch.bfloat16))
+    d16 = (out16 - out).abs()
+    log(f"  bf16 compute: {B_BATCH / sec16:.1f} images/s; bf16 vs float32 "
+        f"after {UNET_STEPS} steps: mean |diff| {float(d16.mean()):.4e}")
+    if not bool(torch.isfinite(out16).all()):
+        fail("bf16 path B output is not finite")
+    profile_steps(f"path B, 3 steps, {3 * B_BATCH} rows", lambda: cfg(n_steps=3))
+    return launches
 
 
 def main() -> int:
@@ -169,8 +472,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from composable_diffusion_models_tpu_torch import convert, entry
-    from composable_diffusion_models_tpu_torch.models import dit
-    from composable_diffusion_models_tpu_torch.ops import _build, kernels
+    from composable_diffusion_models_tpu_torch.models import dit, unet
+    from composable_diffusion_models_tpu_torch.ops import (_build, attention,
+                                                           kernels)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -186,6 +490,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     rows = check_kernels(kernels)
+    rows.update(check_unet_kernels(kernels, attention))
 
     # 4. main path
     trees = [convert.from_flax(convert.init_params(entry.FLAGSHIP, seed=i))
@@ -195,13 +500,11 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1)
     x_init = torch.randn(BATCH, 28, 28, 1, generator=gen).cuda()
     run_sampler(entry, params, x_init[:64], 2)  # warm-up: cuBLAS, caches
-    kernels.fused_dit_block.launches = 0
-    kernels.short_seq_attention.launches = 0
+    reset_launches(kernels, attention)
     out, sec = run_sampler(entry, params, x_init, N_STEPS)
-    launches = {"fused_dit_block": kernels.fused_dit_block.launches,
-                "short_seq_attention": kernels.short_seq_attention.launches}
+    launches = read_launches(kernels, attention)
     want = 4 * entry.N_EXPERTS * N_STEPS
-    log(f"main path: {tuple(out.shape)} in {sec:.3f} s = "
+    log(f"DiT path: {tuple(out.shape)} in {sec:.3f} s = "
         f"{BATCH / sec:.1f} images/s, {sec / N_STEPS * 1e3:.3f} ms/step "
         f"({card}); launches {launches}")
     if not bool(torch.isfinite(out).all()):
@@ -240,22 +543,12 @@ def main() -> int:
     if not err32 <= 1e-3:
         fail("float32 kernel path disagrees with the plain path")
 
-    # 5. device busy share over a short window of the main path
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, sec_prof = run_sampler(entry, params, x_init, 5)
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time for e in events)
-    log(f"profile (5 steps, batch {BATCH}): {len(events)} device kernels, "
-        f"{busy_us / 1e3:.3f} ms busy of {sec_prof * 1e3:.3f} ms wall "
-        f"-> busy share {busy_us / 1e6 / sec_prof:.3f}")
-    log(prof.key_averages().table(sort_by="device_time_total", row_limit=12))
+    # 5. device busy share over a short window of the DiT path
+    profile_steps(f"DiT path, 5 steps, batch {BATCH}",
+                  lambda: entry.sample(params, x_init, n_steps=5))
 
     # 6. second path: fused_block=False through short_seq_attention
-    kernels.fused_dit_block.launches = 0
-    kernels.short_seq_attention.launches = 0
+    reset_launches(kernels, attention)
     out2, sec2 = run_sampler(entry, params, x_init, N_STEPS_SECOND,
                              fused_block=False)
     want2 = 4 * entry.N_EXPERTS * N_STEPS_SECOND
@@ -280,15 +573,28 @@ def main() -> int:
     if not float(d2.mean()) <= 0.05:
         fail("fused_block=False path drifts from the fused path")
 
-    # 7. the kernels line, then the result line
+    del params32, out32, ref32, out_plain
+
+    # 7, 8. the UNet paths
+    unet_launches = unet_paths(card, convert, entry, unet, kernels, attention)
+    launches["groupnorm_silu"] = unet_launches["A"]["groupnorm_silu"]
+    launches["flash_attention"] = unet_launches["B"]["flash_attention"]
+
+    # 9. the kernels line, then the result line. launches: each kernel's
+    # count on the path that serves it (fused_dit_block: the DiT path;
+    # short_seq_attention: fused_block=False; groupnorm_silu: path A;
+    # flash_attention: path B); times at that path's shape and dtype
     src = "composable_diffusion_models_tpu_torch/csrc/"
-    tpu = "composable_diffusion_models_tpu/ops/pallas_kernels.py:"
+    tpu = "composable_diffusion_models_tpu/ops/"
     line = {"kernels": [
         dict(name=name, route="cuda", source=src + name + ".cu",
              replaces=tpu + where, launches=launches[name],
-             **rows[(name, torch.bfloat16)])
-        for name, where in (("fused_dit_block", "467"),
-                            ("short_seq_attention", "319"))]}
+             **rows[(name, dtype)])
+        for name, where, dtype in (
+            ("fused_dit_block", "pallas_kernels.py:467", torch.bfloat16),
+            ("short_seq_attention", "pallas_kernels.py:319", torch.bfloat16),
+            ("groupnorm_silu", "pallas_kernels.py:85", torch.bfloat16),
+            ("flash_attention", "attention.py:54", torch.float32))]}
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Composition operators over a stacked (K, B, ...) expert prediction.
 
-Port of ``composable_diffusion_models_tpu.compose.weighted``.
+Port of ``composable_diffusion_models_tpu.compose``: ``weighted`` and ``cfg``.
 """
 
 from __future__ import annotations
@@ -19,3 +19,15 @@ def weighted(eps_stack: torch.Tensor, weights) -> torch.Tensor:
     """eps = sum_i w_i eps_i / sum_i w_i over the leading expert axis."""
     w = _kexp(weights, eps_stack)
     return (w * eps_stack).sum(dim=0) / w.sum(dim=0)
+
+
+def cfg(eps_uncond: torch.Tensor, eps_cond_stack: torch.Tensor,
+        weights) -> torch.Tensor:
+    """Classifier-free-guidance composition:
+
+      eps = eps_uncond + sum_i w_i (eps_cond_i - eps_uncond)
+
+    ``eps_cond_stack``: (K, B, ...) conditional predictions; ``weights``:
+    (K,)."""
+    w = _kexp(weights, eps_cond_stack)
+    return eps_uncond + (w * (eps_cond_stack - eps_uncond[None])).sum(dim=0)

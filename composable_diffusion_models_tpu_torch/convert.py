@@ -1,10 +1,11 @@
 """Weight bridge: flax parameter trees <-> torch tensors, and numpy init.
 
 A flax tree is a nested dict of arrays. ``from_flax`` keeps every key path
-and every shape as flax stores it: Dense kernels (in, out), the patchify
-Conv kernel HWIO, the stock attention's per-head (D, H, hd) kernels. The
-model code reshapes them where the JAX package does (``models/dit.py``), so
-one converted tree serves both attention layouts.
+and every shape as flax stores it: Dense kernels (in, out), Conv kernels
+HWIO, the stock attention's per-head (D, H, hd) kernels. The DiT code
+reshapes them where the JAX package does (``models/dit.py``), so one
+converted tree serves both attention layouts. The UNet's convolutions want
+OIHW weights: ``unet_torch_layout`` transposes them once, at load.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ import numpy as np
 import torch
 
 from .models.dit import DiT
+from .models.unet import UNet
+
+Shapes = Dict[Tuple[str, ...], Tuple[Tuple[int, ...], int]]
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -35,12 +39,97 @@ def from_flax(tree: Any) -> Any:
     return _to_tensor(tree)
 
 
-def param_shapes(cfg: DiT) -> Dict[Tuple[str, ...], Tuple[Tuple[int, ...], int]]:
-    """{key path: (shape, fan_in)} of ``DiT.init``'s tree under "params"."""
+def unet_torch_layout(tree: Any) -> Any:
+    """A UNet tree of torch tensors with every convolution kernel (a 4-D
+    ``kernel`` leaf, HWIO) replaced by a ``weight`` leaf in ``F.conv2d``'s
+    OIHW order, channels-last in memory. Everything else is kept. Done once
+    at load; applying it to its own result changes nothing."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for key, val in tree.items():
+        if key == "kernel" and not isinstance(val, dict) and val.dim() == 4:
+            out["weight"] = val.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+        else:
+            out[key] = unet_torch_layout(val)
+    return out
+
+
+def param_shapes(cfg) -> Shapes:
+    """{key path: (shape, fan_in)} of the flax module's ``init`` tree under
+    "params", for a :class:`DiT` or a :class:`UNet` configuration."""
+    return _unet_shapes(cfg) if isinstance(cfg, UNet) else _dit_shapes(cfg)
+
+
+def _unet_shapes(cfg: UNet) -> Shapes:
+    """flax's auto-names: ``TimeEmbedding_0/Dense_{0,1}``,
+    ``label_emb_i/embedding``, ``init_conv``, ``down_i|bottleneck|up_i/
+    {gn1, gn2, Conv_0, Conv_1, Conv_2, Dense_0}``, ``*_attn*/{LayerNorm_0,
+    Dense_0..3}``, ``out_conv``."""
+    out: Shapes = {}
+    emb = cfg.time_emb_dim
+
+    def dense(path, fin, fout, bias=True):
+        out[path + ("kernel",)] = ((fin, fout), fin)
+        if bias:
+            out[path + ("bias",)] = ((fout,), 0)
+
+    def conv(path, k, cin, cout):
+        out[path + ("kernel",)] = ((k, k, cin, cout), k * k * cin)
+        out[path + ("bias",)] = ((cout,), 0)
+
+    def norm(path, c):
+        out[path + ("scale",)] = ((c,), 0)
+        out[path + ("bias",)] = ((c,), 0)
+
+    def res_block(name, cin, cout):
+        norm((name, "gn1"), cin)
+        conv((name, "Conv_0"), 3, cin, cout)
+        dense((name, "Dense_0"), emb, cout)
+        norm((name, "gn2"), cout)
+        conv((name, "Conv_1"), 3, cout, cout)
+        if cin != cout:
+            conv((name, "Conv_2"), 1, cin, cout)
+
+    def attention(name, c):
+        if not (cfg.cross_attn and cfg.num_classes):
+            return
+        norm((name, "LayerNorm_0"), c)
+        dense((name, "Dense_0"), c, c, bias=False)
+        dense((name, "Dense_1"), emb, c, bias=False)
+        dense((name, "Dense_2"), emb, c, bias=False)
+        dense((name, "Dense_3"), c, c)
+
+    dense(("TimeEmbedding_0", "Dense_0"), cfg.base_dim, emb)
+    dense(("TimeEmbedding_0", "Dense_1"), emb, emb)
+    vocab_extra = 1 if cfg.null_token else 0
+    for i, n in enumerate(cfg.num_classes):
+        out[(f"label_emb_{i}", "embedding")] = ((n + vocab_extra, emb), 1)
+    widths = [cfg.base_dim * m for m in cfg.channel_mults]
+    n_levels = len(widths) - 1
+    conv(("init_conv",), 3, cfg.in_channels, widths[0])
+    ch = widths[0]
+    for i in range(n_levels):
+        res_block(f"down_{i}", ch, widths[i])
+        attention(f"down_attn_{i}", widths[i])
+        ch = widths[i]
+    res_block("bottleneck", ch, widths[-1])
+    attention("bot_attn", widths[-1])
+    ch = widths[-1]
+    for i in reversed(range(n_levels)):
+        res_block(f"up_{i}", ch + widths[i], widths[i])
+        attention(f"up_attn_{i}", widths[i])
+        ch = widths[i]
+    conv(("out_conv",), 1, ch, cfg.out_channels or cfg.in_channels)
+    return out
+
+
+def _dit_shapes(cfg: DiT) -> Shapes:
     d, p, c = cfg.dim, cfg.patch, cfg.in_channels
     hd = d // cfg.n_heads
     mlp = 4 * d
-    out: Dict[Tuple[str, ...], Tuple[Tuple[int, ...], int]] = {}
+    out: Shapes = {}
 
     def dense(path, fin, fout):
         out[path + ("kernel",)] = ((fin, fout), fin)
@@ -74,19 +163,25 @@ def param_shapes(cfg: DiT) -> Dict[Tuple[str, ...], Tuple[Tuple[int, ...], int]]
     return out
 
 
-def init_params(cfg: DiT, seed: int) -> Dict[str, Any]:
-    """Random float32 numpy tree with ``DiT.init``'s key paths and shapes.
+def init_params(cfg, seed: int) -> Dict[str, Any]:
+    """Random float32 numpy tree with the key paths and shapes of the flax
+    module's ``init`` (``DiT`` or ``UNet``).
 
     Kernels are N(0, 1/fan_in); biases and the positional embedding
-    N(0, 0.02^2); label embeddings N(0, 1). Nothing is zero: the flax init
-    zeroes the adaLN and head weights, which makes an untrained DiT the zero
-    function and every parity check between two ports trivially true."""
+    N(0, 0.02^2); label embeddings N(0, 1); norm scales 1 + N(0, 0.1^2).
+    Nothing is zero: the flax init zeroes every bias and the DiT's adaLN
+    and head weights, which makes an untrained DiT the zero function and a
+    parity check between two ports blind to a dropped bias."""
     rng = np.random.default_rng(seed)
     params: Dict[str, Any] = {}
     for path, (shape, fan_in) in param_shapes(cfg).items():
-        std = 1.0 / math.sqrt(fan_in) if fan_in else 0.02
+        noise = rng.standard_normal(shape)
+        if path[-1] == "scale":
+            val = 1.0 + 0.1 * noise
+        else:
+            val = noise * (1.0 / math.sqrt(fan_in) if fan_in else 0.02)
         node = params
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = (rng.standard_normal(shape) * std).astype(np.float32)
+        node[path[-1]] = val.astype(np.float32)
     return {"params": params}

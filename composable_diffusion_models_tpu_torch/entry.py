@@ -1,11 +1,20 @@
-"""The serving path end to end: 3 composed experts, 50-step DDIM, MNIST.
+"""The serving paths end to end, each a deterministic DDIM loop on
+``VPSchedule()`` in float32 around its experts.
 
-Counterpart of the JAX package's bench program (``bench.py``
-``measure_dit_throughput``) and of ``__graft_entry__``: three
-``dit_p14_d256_l4`` experts (patch 14, so 4 tokens per 28 x 28 image; dim
-256; 8 heads; depth 4) served in bf16 through the folded DiT, blended by
-``compose.weighted`` with unit weights, inside an fp32 deterministic DDIM
-loop on ``VPSchedule()``.
+* :func:`sample`: 3 composed experts on MNIST. Counterpart of the JAX
+  package's bench program (``bench.py`` ``measure_dit_throughput``) and of
+  ``__graft_entry__``: three ``dit_p14_d256_l4`` experts (patch 14, so 4
+  tokens per 28 x 28 image; dim 256; 8 heads; depth 4) served in bf16
+  through the folded DiT, blended by ``compose.weighted`` with unit weights.
+* :func:`sample_shapes`: 2 composed class-conditional ``unet64`` experts on
+  64 x 64 RGB shapes. Counterpart of ``bench.py``
+  ``measure_shapes_throughput`` (the ``scripts/compose_images_ddim.py``
+  workload): per-expert labels, bf16 experts, ``compose.weighted``.
+* :func:`sample_cfg`: classifier-free-guidance composition with ONE
+  dual-conditioned cross-attention ``unet64`` on 28 x 28 RGB. Counterpart
+  of ``scripts/compose_cfg.py`` on the ``ito_cross_attention`` preset: the
+  null slot and the two conditions folded into the batch axis, blended by
+  ``compose.cfg``.
 """
 
 from __future__ import annotations
@@ -17,14 +26,23 @@ import torch
 
 from . import resolve_device
 from .compose import weighted
-from .experts import ExpertStack
+from .convert import param_shapes, unet_torch_layout
+from .experts import ExpertStack, per_expert
 from .models.dit import DiT, make_folded_apply
-from .samplers import ddim
+from .models.unet import UNet
+from .samplers import ddim, make_cfg_eps_fn
 from .schedules import VPSchedule
 
 FLAGSHIP = DiT(patch=14, dim=256, depth=4, n_heads=8, in_channels=1,
                qkv_fused=True, img_size=28)
 N_EXPERTS = 3
+# the unet64 family: base 64, widths (64, 128, 256), GroupNorm(8)
+SHAPES_UNET = UNet(in_channels=3, base_dim=64, channel_mults=(1, 2, 4),
+                   num_classes=(3,))
+N_SHAPES_EXPERTS = 2
+CFG_UNET = UNet(in_channels=3, base_dim=64, channel_mults=(1, 2, 4),
+                num_classes=(10, 3), null_token=True, cross_attn=True,
+                flash_attn=True)
 
 
 def gflop_per_image(n_steps: int = 50) -> float:
@@ -40,6 +58,47 @@ def gflop_per_image(n_steps: int = 50) -> float:
     return 2.0 * (cfg.depth * per_block + patchify) * N_EXPERTS * n_steps / 1e9
 
 
+def unet_gflop_per_image(model: UNet, h: int, w: int) -> float:
+    """Analytic GFLOP of one UNet forward per image (MACs x 2), counted
+    from the configuration: every convolution at its level's resolution,
+    the output head, the residual blocks' time projections, the bilinear
+    upsample matmuls, and per attention site the q and out projections,
+    the context's k and v projections and the two attention products. The
+    batch-1 time tower and the elementwise work are left out."""
+    n_levels = len(model.channel_mults) - 1
+    n_ctx = len(model.num_classes)
+
+    def level(name: str) -> int:
+        tail = name.rsplit("_", 1)[-1]
+        return int(tail) if tail.isdigit() else (
+            n_levels if name.startswith("bo") else 0)
+
+    macs = 0
+    for path, (shape, _) in param_shapes(model).items():
+        if path[-1] != "kernel":
+            continue
+        pixels = (h >> level(path[0])) * (w >> level(path[0]))
+        fan = 1
+        for dim in shape:
+            fan *= dim
+        if len(shape) == 4:                       # a convolution
+            macs += fan * pixels
+        elif "attn" in path[0]:
+            # Dense_0 (q) and Dense_3 (out) per pixel, Dense_1/2 per
+            # context token, and once per site scores + values
+            per_pixel = path[1] in ("Dense_0", "Dense_3")
+            macs += fan * (pixels if per_pixel else n_ctx)
+            if path[1] == "Dense_0":
+                macs += 2 * pixels * n_ctx * shape[1]
+        elif path[0] != "TimeEmbedding_0":        # a block's time projection
+            macs += fan
+    for i in range(n_levels):                     # upsample into level i
+        hh, ww = h >> (i + 1), w >> (i + 1)
+        c = model.base_dim * model.channel_mults[i + 1]
+        macs += 2 * hh * hh * ww * c + 2 * ww * ww * c * 2 * hh
+    return 2.0 * macs / 1e9
+
+
 def _cast(tree: Any, device: torch.device, dtype: torch.dtype) -> Any:
     if isinstance(tree, dict):
         return {k: _cast(v, device, dtype) for k, v in tree.items()}
@@ -53,6 +112,15 @@ def load_experts(trees: Sequence[Any], device=None,
     trees it returns pass through :func:`sample` without a copy."""
     dev = resolve_device(device)
     return [_cast(t, dev, dtype) for t in trees]
+
+
+def load_unets(trees: Sequence[Any], device=None,
+               dtype: torch.dtype = torch.bfloat16) -> list:
+    """:func:`load_experts` for UNet trees: also puts the convolution
+    kernels into ``F.conv2d``'s layout (``convert.unet_torch_layout``).
+    The trees it returns pass through :func:`sample_shapes` and
+    :func:`sample_cfg` without a copy."""
+    return [unet_torch_layout(t) for t in load_experts(trees, device, dtype)]
 
 
 @torch.inference_mode()
@@ -77,5 +145,66 @@ def sample(params_list: Sequence[Any], x_init, n_steps: int = 50,
         # bf16 experts inside the fp32 sampler, blended in fp32
         return weighted(stack(x.to(dtype), t.to(dtype)).float(), w)
 
+    x = torch.as_tensor(x_init, dtype=torch.float32).to(dev)
+    return ddim(eps_fn, VPSchedule(), x, n_steps)
+
+
+@torch.inference_mode()
+def sample_shapes(params_list: Sequence[Any], x_init, labels,
+                  n_steps: int = 50, fused_gn: bool = True, device=None,
+                  dtype: torch.dtype = torch.bfloat16,
+                  model: UNet = SHAPES_UNET) -> torch.Tensor:
+    """Samples from the composed class-conditional ``unet64`` experts: an
+    fp32 (B, H, W, 3) batch (64 x 64 in the served workload; H and W
+    multiples of 4).
+
+    ``params_list``: one UNet parameter tree per expert
+    (``convert.from_flax``, or already through :func:`load_unets`).
+    ``labels``: (K, B) integer class labels, row i for expert i.
+    ``fused_gn=True`` runs GroupNorm + SiLU through the ``groupnorm_silu``
+    kernel; ``False`` through the PyTorch-op composition. ``device=None``
+    is the CUDA card (raises without one). ``model`` is the experts'
+    architecture; narrower ones exist for CPU tests only."""
+    dev = resolve_device(device)
+    model = dataclasses.replace(model, dtype=dtype, fused_gn=fused_gn)
+    stack = ExpertStack(model.apply, load_unets(params_list, dev, dtype))
+    w = torch.ones((stack.k,), dtype=torch.float32, device=dev)
+    labs = per_expert(torch.as_tensor(labels).to(dev))
+
+    def eps_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        # bf16 experts inside the fp32 sampler, blended in fp32
+        return weighted(stack(x.to(dtype), t.to(dtype), labs).float(), w)
+
+    x = torch.as_tensor(x_init, dtype=torch.float32).to(dev)
+    return ddim(eps_fn, VPSchedule(), x, n_steps)
+
+
+@torch.inference_mode()
+def sample_cfg(params: Any, x_init, digit: int, color: int,
+               guidance: Sequence[float] = (2.0, 2.0), n_steps: int = 50,
+               flash_attn: bool = True, fused_gn: bool = True, device=None,
+               dtype: torch.dtype = torch.float32,
+               model: UNet = CFG_UNET) -> torch.Tensor:
+    """Samples (digit, color) by classifier-free guidance from one
+    dual-conditioned cross-attention ``unet64``: an fp32 (B, 28, 28, 3)
+    batch. The two single-condition slots (digit with the null color, the
+    null digit with color) and the uncond slot run as one forward of 3B
+    rows; ``guidance`` weighs the two conditions.
+
+    ``params``: the UNet parameter tree (``convert.from_flax``, or already
+    through :func:`load_unets`). ``flash_attn=True`` routes the
+    cross-attention through the ``flash_attention`` kernel, ``False``
+    through the einsum pair. ``dtype`` is the model's compute type; the
+    preset computes in float32. ``device=None`` is the CUDA card.
+    ``model`` is the architecture; narrower ones exist for CPU tests only."""
+    dev = resolve_device(device)
+    model = dataclasses.replace(model, dtype=dtype, flash_attn=flash_attn,
+                                fused_gn=fused_gn)
+    tree, = load_unets([params], dev, dtype)
+    n1, n2 = model.num_classes  # the null token is the vocabulary size
+    eps_fn = make_cfg_eps_fn(
+        lambda x, t, *labs: model.apply(tree, x, t, *labs),
+        [(digit, n2), (n1, color)], (n1, n2),
+        torch.tensor(list(guidance), dtype=torch.float32, device=dev))
     x = torch.as_tensor(x_init, dtype=torch.float32).to(dev)
     return ddim(eps_fn, VPSchedule(), x, n_steps)

@@ -1,5 +1,6 @@
 """Score models of the port."""
 
 from .dit import DiT, make_folded_apply
+from .unet import UNet
 
-__all__ = ["DiT", "make_folded_apply"]
+__all__ = ["DiT", "UNet", "make_folded_apply"]

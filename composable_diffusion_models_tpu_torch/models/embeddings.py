@@ -5,6 +5,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def sinusoidal_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -21,3 +22,15 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
                       / (half - 1))
     args = t.to(torch.float32)[:, None] * freqs[None, :]
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+def time_embedding(p, t: torch.Tensor, base_dim: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """sinusoid(base_dim) -> Dense -> SiLU -> Dense over (B,) times, in
+    ``dtype`` (the flax ``TimeEmbedding``; ``p`` holds ``Dense_0`` and
+    ``Dense_1``). A batch-1 ``t`` gives a (1, emb_dim) row that broadcasts."""
+    def dense(v, dp):
+        return F.linear(v.to(dtype), dp["kernel"].to(dtype).t(),
+                        dp["bias"].to(dtype))
+    return dense(F.silu(dense(sinusoidal_embedding(t, base_dim),
+                              p["Dense_0"])), p["Dense_1"])

@@ -1,0 +1,272 @@
+"""Score UNet: eps_hat(x_t, t [, labels...]) over NHWC images.
+
+Port of ``composable_diffusion_models_tpu.models.unet`` (inference: dropout
+is off). Same parameter tree as the flax ``UNet`` after
+``convert.from_flax`` and ``convert.unet_torch_layout`` (conv kernels
+HWIO -> OIHW once at load, stored under ``weight``). Public shapes are NHWC
+as in the JAX package; every activation is a contiguous (B, H, W, C)
+tensor, which is what the ``groupnorm_silu`` kernel reads, and the
+convolutions see it as a channels-last NCHW view without a copy.
+
+Compute-dtype rules follow flax: parameters are cast to ``dtype`` at use
+(``None``: the input's dtype), GroupNorm + SiLU and LayerNorm take their
+statistics in float32 and return ``dtype``, the output head accumulates
+and returns float32.
+
+The JAX flag ``use_pallas`` is ``fused_gn`` here: ``True`` runs GroupNorm +
+SiLU through the ``groupnorm_silu`` kernel (its plain version on CPU
+tensors), ``False`` through the PyTorch-op composition
+(``groupnorm_silu_split`` with one part), the counterpart of the JAX
+package's XLA branch. ``flash_attn`` keeps its name: ``True`` routes the
+cross-attention through the ``flash_attention`` kernel, ``False`` through
+two einsums.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import flash_attention
+from ..ops.kernels import groupnorm_silu, groupnorm_silu_split
+from .embeddings import time_embedding
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_matrix(n: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """(2n, n) bilinear 2x interpolation matrix with half-pixel centres
+    (``align_corners=False``), rows renormalised at the edges: what
+    ``jax.image.resize(eye(n), (2n, n), "linear")`` returns. Built once per
+    size, device and dtype (no host-to-device copy inside the sampler
+    loop)."""
+    pos = (np.arange(2 * n, dtype=np.float64) + 0.5) / 2.0 - 0.5
+    w = np.maximum(0.0, 1.0 - np.abs(pos[:, None] - np.arange(n)[None, :]))
+    w = (w / w.sum(axis=1, keepdims=True)).astype(np.float32)
+    return torch.from_numpy(w).to(device, dtype)
+
+
+def _upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Bilinear 2x upsample, NHWC, as two small matmuls in x's dtype (the
+    intermediate is rounded to x's dtype after the first, as in the JAX
+    package)."""
+    b, h, w, c = x.shape
+    mh = _interp_matrix(h, x.device, x.dtype)
+    mw = _interp_matrix(w, x.device, x.dtype)
+    y = torch.matmul(mh, x.reshape(b, h, w * c))            # (B, 2H, W*C)
+    y = torch.matmul(mw, y.reshape(b * 2 * h, w, c))        # (B*2H, 2W, C)
+    return y.reshape(b, 2 * h, 2 * w, c)
+
+
+def _maxpool2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max pool, stride 2, NHWC; an odd trailing row or column is
+    dropped (VALID padding)."""
+    b, h, w, c = x.shape
+    x = x[:, :h // 2 * 2, :w // 2 * 2]
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def _gn_groups(channels: int, preferred: int = 8) -> int:
+    """Largest group count <= preferred that divides the channel count."""
+    for g in (preferred, 4, 2, 1):
+        if channels % g == 0:
+            return g
+    return 1
+
+
+def _dense(v, p, dtype):
+    bias = p["bias"].to(dtype) if "bias" in p else None
+    return F.linear(v.to(dtype), p["kernel"].to(dtype).t(), bias)
+
+
+def _conv(x: torch.Tensor, weight: torch.Tensor, bias, dtype) -> torch.Tensor:
+    """'SAME' stride-1 convolution of an NHWC tensor with an OIHW weight;
+    returns a contiguous NHWC tensor."""
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), weight.to(dtype),
+                 None if bias is None else bias.to(dtype),
+                 padding=weight.shape[-1] // 2)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _split_conv(parts, p, dtype) -> torch.Tensor:
+    """Convolution over a tuple of inputs treated as one channel-
+    concatenated tensor: the kernel is split along its input-channel axis
+    and the partial outputs are summed."""
+    out, off = None, 0
+    for i, part in enumerate(parts):
+        cc = part.shape[-1]
+        y = _conv(part, p["weight"][:, off:off + cc],
+                  p["bias"] if i == len(parts) - 1 else None, dtype)
+        out = y if out is None else out + y
+        off += cc
+    return out
+
+
+def gn_silu(p, x, dtype, fused_gn: bool):
+    """GroupNorm + SiLU with parameters ``p`` ({scale, bias}); a tuple input
+    is normalised as if concatenated on channels (never materialised) and
+    returned as a tuple."""
+    scale, bias = p["scale"].float(), p["bias"].float()
+    if isinstance(x, (tuple, list)):
+        groups = _gn_groups(sum(part.shape[-1] for part in x))
+        outs = groupnorm_silu_split(x, scale, bias, groups=groups)
+        return tuple(o.to(dtype) for o in outs)
+    groups = _gn_groups(x.shape[-1])
+    if fused_gn:
+        return groupnorm_silu(x, scale, bias, groups=groups).to(dtype)
+    return groupnorm_silu_split((x,), scale, bias, groups=groups)[0].to(dtype)
+
+
+def res_block(p, x, t_emb, dtype, fused_gn: bool, skip=None) -> torch.Tensor:
+    """GN+SiLU+3x3 conv -> + time projection -> GN+SiLU+3x3 conv ->
+    + residual (1x1 conv where the width changes). ``skip`` is treated as
+    concat([x, skip], -1) without materialising the concat."""
+    parts = (x,) if skip is None else (x, skip)
+    in_ch = sum(part.shape[-1] for part in parts)
+    out_ch = p["Conv_1"]["weight"].shape[0]
+    hn = gn_silu(p["gn1"], parts if skip is not None else x, dtype, fused_gn)
+    if skip is None:
+        h = _conv(hn, p["Conv_0"]["weight"], p["Conv_0"]["bias"], dtype)
+    else:
+        h = _split_conv(hn, p["Conv_0"], dtype)
+    temb = _dense(F.silu(t_emb), p["Dense_0"], dtype)
+    h = h + temb[:, None, None, :]
+    h = gn_silu(p["gn2"], h, dtype, fused_gn)
+    h = _conv(h, p["Conv_1"]["weight"], p["Conv_1"]["bias"], dtype)
+    if in_ch == out_ch:
+        if skip is not None:
+            raise ValueError("skip input requires a channel-changing block")
+        return h + x
+    if skip is None:
+        return h + _conv(x, p["Conv_2"]["weight"], p["Conv_2"]["bias"], dtype)
+    return h + _split_conv(parts, p["Conv_2"], dtype)
+
+
+def _layer_norm(p, x, dtype) -> torch.Tensor:
+    """flax LayerNorm: float32 one-pass statistics clamped at 0, eps 1e-6,
+    affine in float32, one rounding to ``dtype``."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
+                      min=0.0)
+    mul = torch.rsqrt(var + 1e-6) * p["scale"].float()
+    return ((xf - mean) * mul + p["bias"].float()).to(dtype)
+
+
+def cross_attention(p, x, context, num_heads: int, dtype,
+                    use_flash: bool) -> torch.Tensor:
+    """Residual multi-head cross-attention from the HW image tokens of ``x``
+    (B, H, W, C) to ``context`` (B, S, E). ``use_flash=True`` runs the
+    ``flash_attention`` kernel (float32 probabilities); ``False`` the two
+    einsums, whose probabilities are rounded to v's dtype."""
+    b, h, w, c = x.shape
+    head_dim = c // num_heads
+    tokens_n = _layer_norm(p["LayerNorm_0"], x.reshape(b, h * w, c), dtype)
+    q = _dense(tokens_n, p["Dense_0"], dtype)
+    k = _dense(context, p["Dense_1"], dtype)
+    v = _dense(context, p["Dense_2"], dtype)
+    q, k, v = (z.reshape(b, z.shape[1], num_heads, head_dim)
+               for z in (q, k, v))
+    if use_flash:
+        # (B, N, heads, hd) seen as (B, heads, N, hd): strided views, which
+        # the kernel reads through their strides
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2))
+        out = out.transpose(1, 2).reshape(b, h * w, c)
+    else:
+        logits = (torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+                  / math.sqrt(head_dim))
+        attn = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, h * w, c)
+    return x + _dense(out, p["Dense_3"], dtype).reshape(b, h, w, c)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNet:
+    """Configuration of the score UNet (the flax module's fields, with
+    ``use_pallas`` named ``fused_gn``) and its forward, :meth:`apply`."""
+
+    in_channels: int = 1
+    base_dim: int = 64
+    channel_mults: Tuple[int, ...] = (1, 2, 4)
+    time_emb_dim: int = 256
+    num_classes: Tuple[int, ...] = ()
+    null_token: bool = False
+    cross_attn: bool = False
+    flash_attn: bool = False
+    attn_heads: int = 4
+    out_channels: Optional[int] = None
+    dtype: Optional[torch.dtype] = None
+    fused_gn: bool = False
+    pad_to: Optional[int] = None
+
+    def apply(self, params: Any, x: torch.Tensor, t, *labels) -> torch.Tensor:
+        """eps_hat for NHWC ``x`` (B, H, W, C), ``t`` a scalar or (B,), one
+        integer (B,) label per slot of ``num_classes``; float32 output."""
+        p = params["params"]
+        if x.dim() != 4:
+            raise ValueError(f"expected NHWC input, got {tuple(x.shape)}")
+        dtype = self.dtype or x.dtype
+        orig_hw = tuple(x.shape[1:3])
+        padded = bool(self.pad_to) and orig_hw != (self.pad_to, self.pad_to)
+        if padded:
+            ph, pw = self.pad_to - orig_hw[0], self.pad_to - orig_hw[1]
+            if ph < 0 or pw < 0:
+                raise ValueError("pad_to smaller than the input")
+            # centre the content on the canvas
+            x = F.pad(x, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+        t = torch.as_tensor(t, device=x.device)
+        if t.dim() == 0:
+            # batch-constant t: the time tower runs at batch 1 and the
+            # (1, C) + (B, H, W, C) broadcast does the rest
+            t = t[None]
+        t_emb = time_embedding(p["TimeEmbedding_0"], t, self.base_dim, dtype)
+
+        context = None
+        if self.num_classes:
+            if len(labels) != len(self.num_classes):
+                raise ValueError(f"model takes {len(self.num_classes)} label "
+                                 f"slots, got {len(labels)}")
+            embs = [F.embedding(torch.as_tensor(lab, device=x.device).long(),
+                                p[f"label_emb_{i}"]["embedding"].to(dtype))
+                    for i, lab in enumerate(labels)]
+            if self.cross_attn:
+                context = torch.stack(embs, dim=1)  # (B, n_slots, emb)
+            else:
+                t_emb = t_emb + sum(embs)
+
+        def block(name, h, skip=None):
+            return res_block(p[name], h, t_emb, dtype, self.fused_gn, skip)
+
+        def attend(name, h):
+            if context is None:
+                return h
+            return cross_attention(p[name], h, context, self.attn_heads,
+                                   dtype, self.flash_attn)
+
+        n_levels = len(self.channel_mults) - 1
+        h = _conv(x, p["init_conv"]["weight"], p["init_conv"]["bias"], dtype)
+        skips = []
+        for i in range(n_levels):
+            h = attend(f"down_attn_{i}", block(f"down_{i}", h))
+            skips.append(h)
+            h = _maxpool2x(h)
+        h = attend("bot_attn", block("bottleneck", h))
+        for i in reversed(range(n_levels)):
+            h = block(f"up_{i}", _upsample2x(h), skip=skips[i])
+            h = attend(f"up_attn_{i}", h)
+
+        # output head: 1x1 conv as a matmul of the compute-dtype operands
+        # with a float32 result that is never rounded to the compute dtype
+        w_out = p["out_conv"]["weight"][:, :, 0, 0].to(dtype).float()
+        out = h.float() @ w_out.t() + p["out_conv"]["bias"].float()
+        if padded:
+            out = out[:, ph // 2:ph // 2 + orig_hw[0],
+                      pw // 2:pw // 2 + orig_hw[1], :]
+        return out

@@ -1,0 +1,115 @@
+"""Blockwise (flash) attention: the kernel's wrapper and its plain version.
+
+Port of ``composable_diffusion_models_tpu.ops.attention.flash_attention``.
+The kernel (``csrc/flash_attention.cu``) is hand-written CUDA C++ for
+Hopper, built at first use and called through ctypes. On CPU tensors the
+wrapper returns the plain version; on CUDA tensors it launches the kernel
+on the current stream, raises if the launch fails, and adds one to its
+``launches`` count. A CUDA tensor never takes the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ._build import library
+from .kernels import _DTYPE_CODE, _ptr, _stream_ptr
+
+_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_attention_ref(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of :func:`flash_attention`, at the TPU kernel's
+    rounding sites: q, k, v widened to float32, q scaled before the score
+    product, float32 softmax, probabilities not rounded, one rounding of
+    the output to q's dtype."""
+    if scale is None:
+        scale = 1.0 / float(q.shape[-1]) ** 0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                        v.float()).to(q.dtype)
+
+
+@functools.cache
+def _flash_fn():
+    fn = library("flash_attention").flash_attention_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _row_strides(name: str, t: torch.Tensor) -> tuple:
+    """(batch, head, row) element strides of a (B, H, N, D) tensor whose
+    last axis is dense; the kernel moves 4 elements at a time."""
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: the last axis must have stride 1, got "
+                         f"strides {t.stride()}; make the copy explicit "
+                         f"with .contiguous()")
+    for dim in range(3):
+        if t.shape[dim] > 1 and t.stride(dim) % 4:
+            raise ValueError(f"{name}: stride {t.stride(dim)} of axis {dim} "
+                             f"is not a multiple of 4 elements")
+    return tuple(t.stride(dim) for dim in range(3))
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v over q (B, H, Nq, D) and k, v (B, H, Nk, D),
+    any Nq and Nk >= 1; ``scale`` defaults to 1 / sqrt(D). float32 scores,
+    softmax and accumulator; the result has q's shape and dtype, and on
+    the card q's memory layout when q is dense (a (B, N, H, D) tensor
+    transposed to (B, H, N, D) gives an output that transposes back
+    without a copy).
+
+    Kernel limits: float32 or bfloat16, D in (16, 32, 64, 128); strided
+    views are read through their strides (last axis dense, the other
+    strides multiples of 4 elements, 16-byte aligned), never as if
+    contiguous."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name}: expected (B, H, N, D), got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: {t.dtype} on {t.device}, q is "
+                             f"{q.dtype} on {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtype {q.dtype} not supported (float32 or "
+                         f"bfloat16)")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"device {q.device} not supported")
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if tuple(k.shape) != (b, h, nk, d) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if nk < 1:
+        raise ValueError("flash_attention needs at least one key")
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, scale)
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: D={d} not in {_HEAD_DIMS}")
+    out = torch.empty_like(q)  # q's strides when q is dense
+    if q.numel() == 0:
+        return out
+    strides = sum((_row_strides(name, t) for name, t in
+                   (("q", q), ("k", k), ("v", v), ("out", out))), ())
+    rc = _flash_fn()(_DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v),
+                     _ptr(out), b, h, nq, nk, d,
+                     (ctypes.c_longlong * 12)(*strides), float(scale),
+                     _stream_ptr(q))
+    if rc:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,8 +1,10 @@
-"""The serving path's two kernels, their plain PyTorch versions and wrappers.
+"""The DiT path's two kernels and the UNet's GroupNorm + SiLU kernel, with
+their plain PyTorch versions and wrappers (``flash_attention`` lives in
+``ops/attention.py``, as in the JAX package).
 
-``short_seq_attention`` and ``fused_dit_block`` are hand-written CUDA C++
-for Hopper (``csrc/``), built with nvcc at first use and called through
-ctypes. Each wrapper validates its inputs, and then:
+``short_seq_attention``, ``fused_dit_block`` and ``groupnorm_silu`` are
+hand-written CUDA C++ for Hopper (``csrc/``), built with nvcc at first use
+and called through ctypes. Each wrapper validates its inputs, and then:
 
 * for tensors on the CPU, returns its plain version (``*_ref``);
 * for tensors on the CUDA card, launches the kernel on the current stream,
@@ -33,6 +35,9 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _KT, _NC, _PAD = 32, 128, 8
 _ATTN_HEAD_DIMS = (8, 16, 32, 64)
 _BLOCK_HEAD_DIMS = (16, 32)
+# groupnorm_silu's launch geometry (csrc/groupnorm_silu.cu)
+_GN_THREADS = 256
+_GN_MAX_SPLITS = 32
 
 
 # ------------------------------------------------------------ plain versions
@@ -228,3 +233,145 @@ def fused_dit_block(tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2, b2,
 
 
 fused_dit_block.launches = 0
+
+
+# ----------------------------------------------------------- groupnorm_silu
+def _gn_check(x, scale, bias, groups: int) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"x: expected (B, H, W, C), got {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"x: dtype {x.dtype} not supported (float32 or "
+                         f"bfloat16)")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x: device {x.device} not supported")
+    c = x.shape[-1]
+    if groups < 1 or c % groups:
+        raise ValueError(f"groups={groups} does not divide C={c}")
+    _check("scale", scale, (c,), torch.float32, x.device)
+    _check("bias", bias, (c,), torch.float32, x.device)
+
+
+def _gn_affine(ch_sum, ch_sq, n: int, scale, bias, groups: int, eps: float):
+    """Per-sample, per-channel (a, b) of y = x * a + b from (B, C) float32
+    channel sums: group mean and one-pass variance (clamped at 0),
+    a = rsqrt(var + eps) * scale, b = bias - mean * a."""
+    b, c = ch_sum.shape
+    cg = c // groups
+    g_mean = ch_sum.reshape(b, groups, cg).sum(-1) / n
+    g_sq = ch_sq.reshape(b, groups, cg).sum(-1) / n
+    inv = torch.rsqrt(torch.clamp(g_sq - g_mean * g_mean, min=0.0) + eps)
+    a = inv.repeat_interleave(cg, dim=1) * scale[None, :]
+    return a, bias[None, :] - g_mean.repeat_interleave(cg, dim=1) * a
+
+
+def groupnorm_silu_ref(x, scale, bias, groups: int = 8,
+                       eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of :func:`groupnorm_silu`."""
+    b, h, w, c = x.shape
+    xf = x.reshape(b, h * w, c).float()
+    a, bb = _gn_affine(xf.sum(1), (xf * xf).sum(1), h * w * (c // groups),
+                       scale, bias, groups, eps)
+    y = xf * a[:, None, :] + bb[:, None, :]
+    return (y * torch.sigmoid(y)).to(x.dtype).reshape(b, h, w, c)
+
+
+def gn_splits(dtype: torch.dtype, n: int, hw: int, c: int) -> int:
+    """Row splits of a sample (blocks per sample) for groupnorm_silu: about
+    16 block iterations of rows per block, more splits where the batch
+    alone would leave the card short of ~512 blocks, never more than 32 or
+    than one iteration's rows allow (``chip_smoke.py`` times the widest
+    UNet shape at fixed split counts beside this choice)."""
+    nvc = c * torch.empty((), dtype=dtype).element_size() // 16
+    rows_per_iter = _GN_THREADS // nvc
+    want = max(hw // (rows_per_iter * 16), -(-512 // n))
+    return max(1, min(want, _GN_MAX_SPLITS, hw // rows_per_iter))
+
+
+@functools.cache
+def _gn_fn():
+    fn = library("groupnorm_silu").groupnorm_silu_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def groupnorm_silu(x, scale, bias, groups: int = 8,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """SiLU(GroupNorm(x)) over NHWC ``x`` (B, H, W, C): statistics per
+    sample and per group of C / groups channels over (H, W, C / groups),
+    one-pass float32 variance clamped at 0 (the TPU kernel does not clamp
+    and returns NaN where cancellation drives it negative; the JAX package's
+    XLA path clamps, as here), eps inside the rsqrt, ``scale`` and ``bias``
+    (C,) float32, result in x's dtype.
+
+    Kernel limits: float32 or bfloat16; x contiguous as (B, H, W, C), that
+    is C fastest in memory (a permuted NCHW view raises: the kernel reads
+    ``data_ptr()`` as (B, HW, C)); C a multiple of 16 bytes of elements
+    (4 float32, 8 bfloat16) and at most 256 such vectors."""
+    _gn_check(x, scale, bias, groups)
+    if not x.is_contiguous():
+        raise ValueError(
+            f"x must be contiguous as (B, H, W, C) with C fastest; got "
+            f"strides {x.stride()} for shape {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return groupnorm_silu_ref(x, scale, bias, groups, eps)
+    b, h, w, c = x.shape
+    esize = x.element_size()
+    vec = 16 // esize
+    if c % vec or c // vec > _GN_THREADS:
+        raise ValueError(f"groupnorm_silu: C={c} must be a multiple of {vec} "
+                         f"and at most {vec * _GN_THREADS} for {x.dtype}")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    splits = gn_splits(x.dtype, b, h * w, c)
+    part = torch.empty((b, splits, groups, 2), dtype=torch.float32,
+                       device=x.device)
+    rc = _gn_fn()(_DTYPE_CODE[x.dtype], _ptr(x), _ptr(scale), _ptr(bias),
+                  _ptr(part), _ptr(out), b, h * w, c, groups, splits, eps,
+                  _stream_ptr(x))
+    if rc:
+        raise RuntimeError(f"groupnorm_silu kernel launch failed: CUDA "
+                           f"error {rc}")
+    groupnorm_silu.launches += 1
+    return out
+
+
+groupnorm_silu.launches = 0
+
+
+def groupnorm_silu_split(parts, scale, bias, groups: int = 8,
+                         eps: float = 1e-5):
+    """SiLU(GroupNorm(concat(parts, -1))) without materialising the concat:
+    per-part channel sums meet as (B, C) float32 arrays, the group
+    statistics are combined there (a group may straddle two parts), and
+    each part is normalised on its own. Returns the list of normalised
+    parts, each in its part's dtype.
+
+    Port of the JAX package's ``groupnorm_silu_split``, which is XLA-only
+    there; PyTorch ops on every device here, not a kernel. With one part it
+    is the unfused form of :func:`groupnorm_silu` (``fused_gn=False``)."""
+    b = parts[0].shape[0]
+    hw = parts[0].shape[1] * parts[0].shape[2]
+    c = sum(p.shape[-1] for p in parts)
+    if c % groups:
+        raise ValueError(f"groups={groups} does not divide C={c}")
+    sums, sqs = [], []
+    for p in parts:
+        if p.shape[0] != b or p.shape[1] * p.shape[2] != hw:
+            raise ValueError(f"part {tuple(p.shape)} does not match "
+                             f"(B={b}, HW={hw})")
+        pf = p.reshape(b, hw, p.shape[-1]).float()
+        sums.append(pf.sum(1))
+        sqs.append((pf * pf).sum(1))
+    a_all, b_all = _gn_affine(torch.cat(sums, -1), torch.cat(sqs, -1),
+                              hw * (c // groups), scale, bias, groups, eps)
+    outs, off = [], 0
+    for p in parts:
+        cc = p.shape[-1]
+        y = torch.addcmul(b_all[:, None, None, off:off + cc], p.float(),
+                          a_all[:, None, None, off:off + cc])
+        outs.append((y * torch.sigmoid(y)).to(p.dtype))
+        off += cc
+    return outs

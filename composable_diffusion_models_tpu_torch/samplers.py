@@ -1,4 +1,4 @@
-"""Deterministic DDIM sampler.
+"""Deterministic DDIM sampler, and the CFG prediction closure.
 
 Port of ``composable_diffusion_models_tpu.samplers.ddim`` for the serving
 path: eta = 0, eps prediction, linear spacing, the x0 clamp gated by alpha.
@@ -9,10 +9,12 @@ are plain floats and the loop never waits for the card.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import functools
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from . import compose
 from .schedules import VPSchedule
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -52,3 +54,38 @@ def ddim(eps_fn: EpsFn, schedule: VPSchedule, x_init: torch.Tensor,
             x0 = x0.clamp(clip[0], clip[1])
         x = a_next * x0 + s_next * out
     return x
+
+
+def make_cfg_eps_fn(apply_fn: Callable[..., torch.Tensor],
+                    cond_labels: Sequence[Tuple],
+                    null_labels: Tuple, weights) -> EpsFn:
+    """eps_fn(x, t) = the CFG-composed prediction of ONE model: the uncond
+    slot and the K conditions run as a single forward with the fan-out
+    folded into the batch axis (the model sees (K + 1) * B rows).
+
+    ``cond_labels``: K label tuples, one label per slot, each a scalar or
+    (B,); ``null_labels``: the uncond tuple; ``weights``: (K,) guidance.
+    Port of the JAX package's ``samplers.make_cfg_eps_fn``."""
+    k = len(cond_labels)
+
+    @functools.lru_cache(maxsize=1)
+    def fanned_labels(b: int, device: torch.device):
+        # the same at every sampler step: built (and copied to the device)
+        # once per batch size
+        labels = []
+        for slot in range(len(null_labels)):
+            slot_vals = [null_labels[slot]] + [c[slot] for c in cond_labels]
+            labels.append(torch.cat(
+                [torch.as_tensor(v, device=device).expand(b)
+                 for v in slot_vals], dim=0))
+        return labels
+
+    def eps_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        x_rep = torch.cat([x] * (k + 1), dim=0)
+        t_rep = torch.as_tensor(t, device=x.device).expand(b).repeat(k + 1)
+        out = apply_fn(x_rep, t_rep, *fanned_labels(b, x.device))
+        out = out.reshape(k + 1, b, *out.shape[1:])
+        return compose.cfg(out[0], out[1:], weights)
+
+    return eps_fn

@@ -1,4 +1,4 @@
-"""Port parity: the two kernels' plain versions against the JAX package's
+"""Port parity: the kernels' plain versions against the JAX package's
 Pallas kernels (interpret mode on the CPU) and their XLA fallbacks, on the
 same numpy inputs; and the wrappers' CPU dispatch and input checks."""
 
@@ -9,7 +9,9 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from composable_diffusion_models_tpu.ops import pallas_kernels as pk
-from composable_diffusion_models_tpu_torch.ops import kernels
+from composable_diffusion_models_tpu.ops.attention import (
+    flash_attention as jax_flash)
+from composable_diffusion_models_tpu_torch.ops import attention, kernels
 
 torch.set_num_threads(1)
 
@@ -152,3 +154,191 @@ def test_fused_dit_block_rejects():
     bad[1] = bad[1][:, :96]
     with pytest.raises(ValueError, match="shape"):
         kernels.fused_dit_block(*bad, 2)
+
+
+# ----------------------------------------------------------- groupnorm_silu
+def _gn_inputs(rng, shape):
+    c = shape[-1]
+    x = (rng.standard_normal(shape) * 2.0 + 0.5).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    return x, scale, bias
+
+
+@pytest.mark.parametrize("shape,groups", [((2, 8, 8, 16), 8),
+                                          ((3, 7, 7, 24), 4),
+                                          ((2, 16, 16, 8), 8),
+                                          ((1, 4, 6, 64), 8)])
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_groupnorm_silu_ref_matches_jax(shape, groups, use_pallas):
+    x, scale, bias = _gn_inputs(np.random.default_rng(sum(shape)), shape)
+    ref = np.asarray(pk.groupnorm_silu(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
+        groups=groups, use_pallas=use_pallas))
+    args = [torch.from_numpy(a) for a in (x, scale, bias)]
+    got = kernels.groupnorm_silu_ref(*args, groups=groups).numpy()
+    # fp32 end to end (the JAX tests' own bar for kernel vs fallback)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    wrapped = kernels.groupnorm_silu(*args, groups=groups).numpy()
+    np.testing.assert_array_equal(wrapped, got)
+
+
+def test_groupnorm_silu_bf16_matches_pallas():
+    """bf16 in and out, float32 statistics and arithmetic on both sides,
+    one rounding at the store: at most one bf16 ulp (2^-8 relative) of the
+    output scale apart, where the float32 results straddle a rounding
+    boundary."""
+    x, scale, bias = _gn_inputs(np.random.default_rng(7), (2, 8, 8, 16))
+    ref = np.asarray(pk.groupnorm_silu(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(scale), jnp.asarray(bias),
+        groups=8, use_pallas=True).astype(jnp.float32))
+    got = kernels.groupnorm_silu_ref(
+        torch.from_numpy(x).bfloat16(), torch.from_numpy(scale),
+        torch.from_numpy(bias), groups=8)
+    assert got.dtype == torch.bfloat16
+    tol = 2.0 ** -8 * float(np.abs(ref).max())
+    assert float(np.abs(got.float().numpy() - ref).max()) <= tol
+
+
+def test_groupnorm_silu_clamps_the_variance():
+    """A constant sample far from 0: E[x^2] - E[x]^2 cancels to a value
+    that may be negative in float32. The port clamps it (as the JAX
+    package's XLA path does), so the output is finite: SiLU(bias)."""
+    x = torch.full((1, 4, 4, 8), 4097.3)
+    out = kernels.groupnorm_silu(x, torch.ones(8), torch.full((8,), 0.5), 2)
+    assert bool(torch.isfinite(out).all())
+    y = torch.tensor(0.5)
+    torch.testing.assert_close(out, (y * torch.sigmoid(y)).expand_as(out),
+                               rtol=0, atol=0.2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_silu_split_matches_jax(dtype):
+    """Two parts of 16 and 8 channels under 4 groups of 6: the third group
+    (channels 12-17) straddles the parts. Also against the concatenated
+    plain version."""
+    rng = np.random.default_rng(11)
+    a, scale, bias = _gn_inputs(rng, (2, 4, 4, 24))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    parts = [a[..., :16], a[..., 16:]]
+    ref = pk.groupnorm_silu_split(
+        [jnp.asarray(p, jdt) for p in parts], jnp.asarray(scale),
+        jnp.asarray(bias), groups=4)
+    got = kernels.groupnorm_silu_split(
+        [torch.from_numpy(np.ascontiguousarray(p)).to(dtype) for p in parts],
+        torch.from_numpy(scale), torch.from_numpy(bias), groups=4)
+    whole = kernels.groupnorm_silu_ref(
+        torch.from_numpy(a).to(dtype), torch.from_numpy(scale),
+        torch.from_numpy(bias), groups=4).float().numpy()
+    # fp32: summation order; bf16: one ulp of the output scale
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -8 * float(
+        np.abs(whole).max())
+    for g, r, w in zip(got, ref, (whole[..., :16], whole[..., 16:])):
+        assert g.dtype == dtype
+        g = g.float().numpy()
+        assert float(np.abs(g - np.asarray(r.astype(jnp.float32))).max()) <= tol
+        assert float(np.abs(g - w).max()) <= tol
+
+
+@pytest.mark.parametrize("bad", ["nchw_view", "rank", "dtype", "groups",
+                                 "scale_shape", "scale_dtype"])
+def test_groupnorm_silu_rejects(bad):
+    x, scale, bias, groups = torch.zeros(2, 4, 4, 16), torch.ones(16), \
+        torch.zeros(16), 8
+    if bad == "nchw_view":  # C is not the fastest axis in memory
+        x = torch.zeros(2, 16, 4, 4).permute(0, 2, 3, 1)
+    elif bad == "rank":
+        x = torch.zeros(2, 16, 16)
+    elif bad == "dtype":
+        x = x.half()
+    elif bad == "groups":
+        groups = 5
+    elif bad == "scale_shape":
+        scale = torch.ones(8)
+    else:
+        scale = scale.bfloat16()
+    with pytest.raises(ValueError):
+        kernels.groupnorm_silu(x, scale, bias, groups)
+
+
+@pytest.mark.parametrize("dtype,n,hw,c,splits", [
+    (torch.bfloat16, 128, 4096, 64, 8), (torch.bfloat16, 128, 1024, 128, 4),
+    (torch.bfloat16, 192, 784, 64, 3), (torch.float32, 128, 4096, 64, 16),
+    (torch.float32, 192, 49, 256, 3), (torch.bfloat16, 3, 49, 24, 1),
+    (torch.float32, 1, 4096, 1024, 32)])
+def test_gn_splits(dtype, n, hw, c, splits):
+    assert kernels.gn_splits(dtype, n, hw, c) == splits
+
+
+# ---------------------------------------------------------- flash_attention
+def _qkv(rng, b, h, nq, nk, d):
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, h, nq, d), (b, h, nk, d), (b, h, nk, d))]
+
+
+@pytest.mark.parametrize("b,h,nq,nk,d", [(1, 2, 128, 2, 32),     # label context
+                                         (1, 2, 128, 200, 32),   # ragged keys
+                                         (2, 2, 128, 128, 64),
+                                         (2, 4, 49, 2, 16)])     # UNet site
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_flash_attention_ref_matches_jax(b, h, nq, nk, d, use_pallas):
+    q, k, v = _qkv(np.random.default_rng(nq + nk + d), b, h, nq, nk, d)
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               use_pallas=use_pallas))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = attention.flash_attention_ref(tq, tk, tv).numpy()
+    # the JAX tests' own bar for kernel vs einsum
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-3)
+    wrapped = attention.flash_attention(tq, tk, tv).numpy()
+    np.testing.assert_array_equal(wrapped, got)
+
+
+def test_flash_attention_bf16_and_scale():
+    """bf16 inputs are widened, the probabilities stay float32 and the
+    output is rounded once: one bf16 ulp of the O(1) outputs. An explicit
+    scale is honoured."""
+    q, k, v = _qkv(np.random.default_rng(5), 2, 2, 64, 3, 16)
+    ref = np.asarray(jax_flash(*(jnp.asarray(a, jnp.bfloat16)
+                                 for a in (q, k, v)), scale=0.3,
+                               use_pallas=True).astype(jnp.float32))
+    got = attention.flash_attention_ref(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), scale=0.3)
+    assert got.dtype == torch.bfloat16
+    assert float(np.abs(got.float().numpy() - ref).max()) <= 2.0 ** -8 * float(
+        np.abs(ref).max())
+
+
+def test_flash_attention_reads_transposed_views():
+    """(B, N, H, D) tensors transposed to (B, H, N, D), as the UNet's
+    cross-attention hands them over, give what their contiguous copies
+    give."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .transpose(1, 2) for s in ((2, 49, 4, 16), (2, 2, 4, 16),
+                                          (2, 2, 4, 16)))
+    assert not q.is_contiguous()
+    out = attention.flash_attention(q, k, v)
+    ref = attention.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous())
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["rank", "dtype", "mixed", "kv", "heads",
+                                 "no_keys"])
+def test_flash_attention_rejects(bad):
+    q, k, v = torch.zeros(2, 2, 8, 16), torch.zeros(2, 2, 3, 16), \
+        torch.zeros(2, 2, 3, 16)
+    if bad == "rank":
+        q = torch.zeros(2, 8, 16)
+    elif bad == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "mixed":
+        k = k.bfloat16()
+    elif bad == "kv":
+        v = torch.zeros(2, 2, 4, 16)
+    elif bad == "heads":
+        k, v = torch.zeros(2, 4, 3, 16), torch.zeros(2, 4, 3, 16)
+    else:
+        k, v = torch.zeros(2, 2, 0, 16), torch.zeros(2, 2, 0, 16)
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, k, v)
