@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
  1. the card's name and power limit (nvidia-smi);
  2. builds the CUDA kernels from ``composable_diffusion_models_tpu_torch/
     csrc`` with nvcc (ptxas register/spill report printed);
- 3. holds each of the four kernels against its plain PyTorch version on the
+ 3. holds each of the six kernels against its plain PyTorch version on the
     card, in float32 and bfloat16, at the serving shapes and at ragged
     ones, and times kernel, plain version and, where one PyTorch call (or
     two, for GroupNorm + SiLU) computes the same function, that call;
@@ -30,7 +30,16 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     ``groupnorm_silu`` launches, ``flash_attn=True`` against ``False``,
     kernel path against plain path, profile. The preset's 1000 sampler
     steps are cut to 50 here for time;
- 9. one ``kernels`` JSON line, then the result line.
+ 9. the latent path at the full width of the ``shapes_latent`` preset:
+    10000 seeded 64 x 64 x 1 images made on the card, ``fit_pca(2)``,
+    ``encode`` (one ``matmul`` launch), two ``ScoreMLP(256, 3, 2)`` experts,
+    512 latents through ``entry.sample_latent`` under each of its four
+    operators at the preset's 1000 steps (``em`` at the ``mnist_latent2d``
+    shape: 8192 seeded 28 x 28 images, batch 64): exactly ``n_steps``
+    ``blend_eps`` launches for ``ddim`` and ``em`` and none for ``avg`` and
+    ``ito``, one ``matmul`` launch per decode, the kernel path against the
+    plain path, latents/s, profile;
+10. one ``kernels`` JSON line, then the result line.
 
 Exits with code 2 and prints no result where there is no CUDA card.
 """
@@ -69,6 +78,27 @@ FA_SHAPES = [FA_MAIN, (3 * B_BATCH, 4, 196, 2, 32), (3 * B_BATCH, 4, 49, 2, 64),
              (1, 1, 128, 384, 32), (1, 2, 128, 200, 32), (3, 2, 77, 33, 128),
              (4, 8, 4096, 4096, 64)]
 FA_TIMED = FA_SHAPES[:3] + FA_SHAPES[-1:]
+# latent path: the shapes_latent preset (10000 images of 64 x 64 x 1, 512
+# latents of 2 dims, 1000 steps) and the mnist_latent2d preset for em (8192
+# images of 28 x 28 x 1, batch 64)
+LATENT_N, LATENT_SIZE, LATENT_BATCH, LATENT_STEPS = 10000, 64, 512, 1000
+EM_N, EM_SIZE, EM_BATCH = 8192, 28, 64
+# blend_eps: (K, B, ...) stacks. The latent path's, the DiT path's and the
+# shapes path's blends (all float32 there), then ragged ones, K = 1 and 5
+BLEND_MAIN = (2, LATENT_BATCH, 2)
+BLEND_SHAPES = [BLEND_MAIN, (3, BATCH, 28, 28, 1), (2, A_BATCH, 64, 64, 3),
+                (3, 7, 5), (2, 1, 1), (1, 9, 33), (5, 1000, 3), (5, 64, 8)]
+BLEND_TIMED = BLEND_SHAPES[:3]
+# matmul: (M, K, N). The codec's encode and decode at both presets, a wider
+# codec (64 components of 64 x 64 x 3 images) and its decode, the shapes of
+# the JAX package's own kernel test, odd ones, and one square
+MM_MAIN = (LATENT_BATCH, 2, LATENT_SIZE ** 2)
+MM_SHAPES = [(LATENT_N, LATENT_SIZE ** 2, 2), (EM_N, EM_SIZE ** 2, 2),
+             MM_MAIN, (EM_BATCH, 2, EM_SIZE ** 2), (8192, 12288, 64),
+             (LATENT_BATCH, 64, 12288), (2048, 2048, 2048), (64, 32, 48),
+             (130, 784, 2), (1, 1, 1), (7, 129, 3), (33, 5, 65),
+             (257, 1000, 130)]
+MM_TIMED = MM_SHAPES[:7]
 
 
 def log(msg: str) -> None:
@@ -99,6 +129,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time per call of the port's own kernels inside ``fn``, read
+    from a trace: a launch of a few microseconds is timed by ``time_ms`` at
+    the rate the host can issue it, not at what the card needs."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "cdm::" in e.name) / 1e3 / iters
 
 
 def block_inputs(b, t, d, dtype, gen):
@@ -291,6 +337,92 @@ def check_unet_kernels(kernels, attention):
     return rows
 
 
+def check_latent_kernels(kernels, compose):
+    """Phase 3 for blend_eps and matmul. Returns the float32 numbers at the
+    latent path's shapes (the path computes in float32) for the JSON
+    line."""
+    gen = torch.Generator().manual_seed(4)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        es = torch.empty((), dtype=dtype).element_size()
+        for shape in BLEND_SHAPES:
+            k = shape[0]
+            eps = torch.randn(*shape, generator=gen).to("cuda", dtype)
+            w = (torch.rand(k, generator=gen) + 0.5).cuda()
+            got = kernels.blend_eps(eps, w)
+            torch.cuda.synchronize()
+            ref = kernels.blend_eps_ref(eps, w)
+            err = max_err(got, ref)
+            # float32: the kernel keeps the plain version's order and
+            # rounding sites (expected 0); 1e-6 of scale allows a fused
+            # multiply-add on either side
+            tol = tolerance(dtype, ref, 1e-6)
+            err_w = max_err(got, compose.weighted(eps.float(), w))
+            log(f"blend_eps {name} {shape}: max_abs_err={err:.3e} "
+                f"tol={tol:.3e}; vs compose.weighted in float32 "
+                f"{err_w:.3e}")
+            if not err <= tol:
+                fail("blend_eps disagrees with its plain version")
+            if shape not in BLEND_TIMED:
+                continue
+            ms = time_ms(lambda: kernels.blend_eps(eps, w))
+            dev = device_ms(lambda: kernels.blend_eps(eps, w))
+            plain = time_ms(lambda: kernels.blend_eps_ref(eps, w))
+            ops_ms = time_ms(lambda: compose.weighted(eps, w))
+            n = eps[0].numel()
+            nbytes = (k + 1) * n * es + 4 * k
+            bms, by = bound_ms((2 * k + 1) * n, nbytes, torch.float32)
+            log(f"  blend_eps {name} {shape}: kernel {ms:.4f} ms ({dev:.4f} "
+                f"ms on the device in a trace), plain "
+                f"{plain:.4f} ms, compose.weighted (PyTorch ops, "
+                f"fused_blend=False) {ops_ms:.4f} ms, bound {bms:.6f} ms "
+                f"({by}; {nbytes / 1e6:.3f} MB)")
+            if shape == BLEND_MAIN:
+                # no single PyTorch call computes the normalised blend
+                rows[("blend_eps", dtype)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=None)
+        for m, k, n in MM_SHAPES:
+            a = torch.randn(m, k, generator=gen).to("cuda", dtype)
+            b = torch.randn(k, n, generator=gen).to("cuda", dtype)
+            got = kernels.matmul(a, b)
+            torch.cuda.synchronize()
+            ref = kernels.matmul_ref(a, b)
+            err = max_err(got, ref)
+            # either operand as a transposed view, read through strides
+            err = max(err, max_err(
+                kernels.matmul(a, b.t().contiguous().t()), ref), max_err(
+                kernels.matmul(a.t().contiguous().t(), b), ref))
+            # float32: two sums of K products in different orders, each
+            # off by ~2^-24 sqrt(K) of the output scale: 2 * 2^-23 sqrt(K)
+            tol = tolerance(dtype, ref, 2 * 2.0 ** -23 * max(1, k) ** 0.5)
+            log(f"matmul {name} M={m} K={k} N={n}: max_abs_err={err:.3e} "
+                f"tol={tol:.3e} (contiguous and transposed operands)")
+            if not err <= tol:
+                fail("matmul disagrees with its plain version")
+            if (m, k, n) not in MM_TIMED:
+                continue
+            iters = 5 if m * k * n > 1e9 else 20
+            ms = time_ms(lambda: kernels.matmul(a, b), iters, 2)
+            dev = device_ms(lambda: kernels.matmul(a, b), iters)
+            plain = time_ms(lambda: kernels.matmul_ref(a, b), iters, 2)
+            lib = time_ms(lambda: torch.matmul(a, b), iters, 2)
+            flops = 2 * m * n * k
+            nbytes = es * (m * k + k * n + m * n)
+            bms, by = bound_ms(flops, nbytes, dtype)
+            log(f"  matmul {name} M={m} K={k} N={n}: kernel {ms:.4f} ms "
+                f"({dev:.4f} ms on the device in a trace), "
+                f"plain {plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
+                f"{bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB)")
+            if (m, k, n) == MM_MAIN:
+                rows[("matmul", dtype)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib)
+    return rows
+
+
 def timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -329,7 +461,8 @@ def profile_steps(label: str, fn) -> None:
 
 def reset_launches(kernels, attention) -> None:
     for fn in (kernels.fused_dit_block, kernels.short_seq_attention,
-               kernels.groupnorm_silu, attention.flash_attention):
+               kernels.groupnorm_silu, attention.flash_attention,
+               kernels.blend_eps, kernels.matmul):
         fn.launches = 0
 
 
@@ -337,7 +470,9 @@ def read_launches(kernels, attention) -> dict:
     return {"fused_dit_block": kernels.fused_dit_block.launches,
             "short_seq_attention": kernels.short_seq_attention.launches,
             "groupnorm_silu": kernels.groupnorm_silu.launches,
-            "flash_attention": attention.flash_attention.launches}
+            "flash_attention": attention.flash_attention.launches,
+            "blend_eps": kernels.blend_eps.launches,
+            "matmul": kernels.matmul.launches}
 
 
 def unet_paths(card, convert, entry, unet, kernels, attention) -> dict:
@@ -467,14 +602,151 @@ def unet_paths(card, convert, entry, unet, kernels, attention) -> dict:
     return launches
 
 
+def blob_images(n: int, size: int, seed: int) -> torch.Tensor:
+    """(n, size, size, 1) float32 images in [-1, 1] made on the card from a
+    seed: one soft disc per image with a random centre, radius and
+    brightness, so the set has visible low-rank structure for the PCA."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.rand(n, 4, generator=gen, device="cuda")
+    cx, cy = (size * (0.25 + 0.5 * u[:, i])[:, None, None] for i in (0, 1))
+    radius = size * (0.1 + 0.15 * u[:, 2])[:, None, None]
+    level = (0.5 + 0.5 * u[:, 3])[:, None, None]
+    ax = torch.arange(size, dtype=torch.float32, device="cuda")
+    d2 = (ax[None, :, None] - cy) ** 2 + (ax[None, None, :] - cx) ** 2
+    return (2.0 * level * torch.exp(-d2 / (2.0 * radius ** 2))
+            - 1.0)[..., None]
+
+
+def fit_codec(card, entry, pca_codec, kernels, attention, n, size, seed):
+    """Images, fit_pca(2) and the encode of the whole set: one matmul
+    launch, checked against the plain product, reconstruction error below
+    the data's variance."""
+    imgs = blob_images(n, size, seed)
+    codec, sec_fit = timed(lambda: pca_codec.fit_pca(imgs, 2))
+    reset_launches(kernels, attention)
+    z_all, sec_enc = timed(lambda: codec.encode(imgs))
+    if kernels.matmul.launches != 1:
+        fail(f"encode launched matmul {kernels.matmul.launches} times, "
+             f"expected 1")
+    flat = imgs.reshape(n, -1)
+    z_plain = kernels.matmul_ref(flat - codec.mean, codec.components_t)
+    err = max_err(z_all, z_plain)
+    tol = 2 * 2.0 ** -23 * size * max(1.0, float(z_plain.abs().max()))
+    mse = float(((codec.decode(z_all) - flat) ** 2).mean())
+    var = float(flat.var(dim=0).mean())
+    log(f"codec {n} x {size} x {size} x 1 ({card}): fit_pca(2) "
+        f"{sec_fit:.3f} s, explained variance "
+        f"{[round(v, 3) for v in codec.explained_variance.tolist()]}; encode "
+        f"{tuple(z_all.shape)} in {sec_enc * 1e3:.3f} ms with 1 matmul "
+        f"launch, vs plain product max |diff| {err:.3e} (tol {tol:.3e}: "
+        f"2 * 2^-23 sqrt(D) of scale); reconstruction mse {mse:.4f} against "
+        f"a per-pixel variance of {var:.4f}")
+    if not err <= tol:
+        fail("encode disagrees with the plain product")
+    if not (mse == mse and mse < var):
+        fail("the 2-component reconstruction is no better than the mean")
+    return entry.load_pca(codec)
+
+
+def latent_path(card, convert, entry, pca_codec, kernels, attention) -> dict:
+    """Phase 9. Returns the kernel launches of the ddim run."""
+    codec = fit_codec(card, entry, pca_codec, kernels, attention, LATENT_N,
+                      LATENT_SIZE, seed=5)
+    codec_em = fit_codec(card, entry, pca_codec, kernels, attention, EM_N,
+                         EM_SIZE, seed=6)
+    params = entry.load_latent_experts(
+        [convert.from_flax(convert.init_params(entry.SHAPES_LATENT_MLP,
+                                               seed=i)) for i in range(2)])
+    gen = torch.Generator().manual_seed(8)
+    z_init = torch.randn(LATENT_BATCH, 2, generator=gen).cuda()
+    launches = {}
+    for op in entry.LATENT_OPS:
+        em = op == "em"
+        pca, z0 = (codec_em, z_init[:EM_BATCH]) if em else (codec, z_init)
+        size, batch = (EM_SIZE, EM_BATCH) if em else (LATENT_SIZE,
+                                                      LATENT_BATCH)
+
+        def run(n_steps=LATENT_STEPS, **kw):
+            return entry.sample_latent(params, pca, z0, op=op,
+                                       n_steps=n_steps, **kw)
+
+        run(2)  # warm-up: cuBLAS handles, caches
+        reset_launches(kernels, attention)
+        (z, imgs), sec = timed(run)
+        counts = read_launches(kernels, attention)
+        log(f"latent path, op {op} ({batch} latents, {LATENT_STEPS} steps, "
+            f"2 experts, float32, decode to {size} x {size}): {tuple(z.shape)}"
+            f" -> {tuple(imgs.shape)} in {sec:.3f} s = {batch / sec:.1f} "
+            f"latents/s, {sec / LATENT_STEPS * 1e3:.3f} ms/step ({card}); "
+            f"max |z| {float(z.abs().max()):.1f}; launches blend_eps "
+            f"{counts['blend_eps']}, matmul {counts['matmul']}")
+        if not (bool(torch.isfinite(z).all())
+                and bool(torch.isfinite(imgs).all())):
+            fail(f"latent path ({op}) output is not finite")
+        if tuple(z.shape) != (batch, 2) or \
+                tuple(imgs.shape) != (batch, size, size, 1):
+            fail(f"latent path ({op}) output has the wrong shape")
+        want = LATENT_STEPS if op in ("ddim", "em") else 0
+        if counts["blend_eps"] != want or counts["matmul"] != 1:
+            fail(f"latent path ({op}): expected {want} blend_eps and 1 "
+                 f"matmul launches")
+        if op == "ddim":
+            launches = counts
+        if want:
+            # the plain path: compose.weighted for the blend and the plain
+            # product for the decode, with the preset's unit weights and
+            # with uneven ones. With K = 2 both blends add the same two
+            # rounded products in the same order and divide once, so 0 is
+            # expected; phase 3 holds the kernel to its plain version at
+            # K = 3 and 5, where the orders differ
+            for weights in (None, (0.7, 1.9)):
+                kw = {} if weights is None else {"weights": weights}
+                z_k, img_k = (z, imgs) if weights is None else run(**kw)
+                with mock.patch.object(kernels, "matmul", kernels.matmul_ref):
+                    z_p, img_p = run(fused_blend=False, **kw)
+                scale = max(1.0, float(z_p.abs().max()))
+                err_z, err_i = max_err(z_k, z_p), max_err(img_k, img_p)
+                log(f"  weights {weights or 'ones'}: kernel path vs plain "
+                    f"path after {LATENT_STEPS} steps: latents max |diff| "
+                    f"{err_z:.3e} at scale {scale:.1f}, images max |diff| "
+                    f"{err_i:.3e} (tol 1e-3 of the latents' scale, float32)")
+                if not (err_z <= 1e-3 * scale and err_i <= 1e-3 * scale):
+                    fail(f"latent path ({op}) disagrees with the plain path")
+            # fused_blend on, off, off, on: the host sets this path's pace,
+            # so single readings move with its load
+            secs = [timed(lambda f=f: run(fused_blend=f))[1]
+                    for f in (True, False, False, True)]
+            log("  ms/step with fused_blend True, False, False, True: "
+                + ", ".join(f"{t / LATENT_STEPS * 1e3:.3f}" for t in secs))
+        else:
+            # no blend on this operator: the plain path differs in the
+            # decode alone
+            img_p = (kernels.matmul_ref(z, pca.components) + pca.mean).reshape(
+                batch, size, size, 1).clamp(-1.0, 1.0)
+            err_i = max_err(imgs, img_p)
+            tol = 4 * 2.0 ** -23 * max(1.0, float(z.abs().max()))
+            log(f"  decode through the kernel vs the plain product: images "
+                f"max |diff| {err_i:.3e} (tol {tol:.3e}: two products per "
+                f"pixel, 4 * 2^-23 of the latents' scale)")
+            if not err_i <= tol:
+                fail(f"latent path ({op}): decode disagrees with the plain "
+                     f"product")
+        _, sec20 = timed(lambda: run(20))
+        log(f"  20 steps without the profiler: {sec20 * 1e3:.3f} ms wall")
+        profile_steps(f"latent path, op {op}, 20 steps, {batch} latents",
+                      lambda: run(20))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from composable_diffusion_models_tpu_torch import convert, entry
+    from composable_diffusion_models_tpu_torch import compose, convert, entry
     from composable_diffusion_models_tpu_torch.models import dit, unet
     from composable_diffusion_models_tpu_torch.ops import (_build, attention,
                                                            kernels)
+    from composable_diffusion_models_tpu_torch.ops import pca as pca_codec
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -491,6 +763,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     rows = check_kernels(kernels)
     rows.update(check_unet_kernels(kernels, attention))
+    rows.update(check_latent_kernels(kernels, compose))
 
     # 4. main path
     trees = [convert.from_flax(convert.init_params(entry.FLAGSHIP, seed=i))
@@ -580,10 +853,17 @@ def main() -> int:
     launches["groupnorm_silu"] = unet_launches["A"]["groupnorm_silu"]
     launches["flash_attention"] = unet_launches["B"]["flash_attention"]
 
-    # 9. the kernels line, then the result line. launches: each kernel's
+    # 9. the latent path
+    latent_launches = latent_path(card, convert, entry, pca_codec, kernels,
+                                  attention)
+    launches["blend_eps"] = latent_launches["blend_eps"]
+    launches["matmul"] = latent_launches["matmul"]
+
+    # 10. the kernels line, then the result line. launches: each kernel's
     # count on the path that serves it (fused_dit_block: the DiT path;
     # short_seq_attention: fused_block=False; groupnorm_silu: path A;
-    # flash_attention: path B); times at that path's shape and dtype
+    # flash_attention: path B; blend_eps and matmul: the latent path under
+    # ddim); times at that path's shape and dtype
     src = "composable_diffusion_models_tpu_torch/csrc/"
     tpu = "composable_diffusion_models_tpu/ops/"
     line = {"kernels": [
@@ -594,7 +874,9 @@ def main() -> int:
             ("fused_dit_block", "pallas_kernels.py:467", torch.bfloat16),
             ("short_seq_attention", "pallas_kernels.py:319", torch.bfloat16),
             ("groupnorm_silu", "pallas_kernels.py:85", torch.bfloat16),
-            ("flash_attention", "attention.py:54", torch.float32))]}
+            ("flash_attention", "attention.py:54", torch.float32),
+            ("blend_eps", "pallas_kernels.py:197", torch.float32),
+            ("matmul", "pallas_kernels.py:229", torch.float32))]}
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

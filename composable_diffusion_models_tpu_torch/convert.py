@@ -17,7 +17,9 @@ import numpy as np
 import torch
 
 from .models.dit import DiT
+from .models.mlp import LatentDiffusionMLP, ScoreMLP
 from .models.unet import UNet
+from .ops.pca import PCA
 
 Shapes = Dict[Tuple[str, ...], Tuple[Tuple[int, ...], int]]
 
@@ -58,8 +60,35 @@ def unet_torch_layout(tree: Any) -> Any:
 
 def param_shapes(cfg) -> Shapes:
     """{key path: (shape, fan_in)} of the flax module's ``init`` tree under
-    "params", for a :class:`DiT` or a :class:`UNet` configuration."""
-    return _unet_shapes(cfg) if isinstance(cfg, UNet) else _dit_shapes(cfg)
+    "params", for a :class:`DiT`, :class:`UNet`, :class:`ScoreMLP` or
+    :class:`LatentDiffusionMLP` configuration."""
+    if isinstance(cfg, UNet):
+        return _unet_shapes(cfg)
+    if isinstance(cfg, (ScoreMLP, LatentDiffusionMLP)):
+        return _mlp_shapes(cfg)
+    return _dit_shapes(cfg)
+
+
+def _mlp_shapes(cfg) -> Shapes:
+    """``Dense_0..Dense_depth`` and, for the latent MLP, one
+    ``label_emb_i/embedding`` per slot (one more row with the null token).
+    The ScoreMLP's input is concat(t, x) with x as wide as the output; the
+    latent MLP's is concat(z, t embedding, label embeddings)."""
+    out: Shapes = {}
+    if isinstance(cfg, ScoreMLP):
+        fin, fout = 1 + cfg.out_dim, cfg.out_dim
+    else:
+        fin = cfg.latent_dim + cfg.time_emb_dim * (1 + len(cfg.num_classes))
+        fout = cfg.latent_dim
+        for i, n in enumerate(cfg.num_classes):
+            out[(f"label_emb_{i}", "embedding")] = (
+                (n + (1 if cfg.null_token else 0), cfg.time_emb_dim), 1)
+    for i in range(cfg.depth + 1):
+        width = fout if i == cfg.depth else cfg.hidden
+        out[(f"Dense_{i}", "kernel")] = ((fin, width), fin)
+        out[(f"Dense_{i}", "bias")] = ((width,), 0)
+        fin = width
+    return out
 
 
 def _unet_shapes(cfg: UNet) -> Shapes:
@@ -165,7 +194,8 @@ def _dit_shapes(cfg: DiT) -> Shapes:
 
 def init_params(cfg, seed: int) -> Dict[str, Any]:
     """Random float32 numpy tree with the key paths and shapes of the flax
-    module's ``init`` (``DiT`` or ``UNet``).
+    module's ``init`` (``DiT``, ``UNet``, ``ScoreMLP`` or
+    ``LatentDiffusionMLP``).
 
     Kernels are N(0, 1/fan_in); biases and the positional embedding
     N(0, 0.02^2); label embeddings N(0, 1); norm scales 1 + N(0, 0.1^2).
@@ -185,3 +215,11 @@ def init_params(cfg, seed: int) -> Dict[str, Any]:
             node = node.setdefault(k, {})
         node[path[-1]] = val.astype(np.float32)
     return {"params": params}
+
+
+def pca_from_numpy(mean, components, explained_variance):
+    """The PCA codec (``ops.pca.PCA``) of three arrays as the JAX package's
+    ``PCA`` holds them (or as ``save_pca`` wrote them): mean (D,),
+    components (k, D), explained variance (k,), as float32 CPU tensors."""
+    return PCA(*(_to_tensor(np.asarray(a, dtype=np.float32))
+                 for a in (mean, components, explained_variance)))

@@ -15,21 +15,32 @@
   of ``scripts/compose_cfg.py`` on the ``ito_cross_attention`` preset: the
   null slot and the two conditions folded into the batch axis, blended by
   ``compose.cfg``.
+* :func:`sample_latent`: 2-D PCA-latent ``ScoreMLP`` experts composed in the
+  latent and decoded to images. Counterpart of
+  ``scripts/latent_shape_experts.py`` (operators ``ddim``, ``avg``, ``ito``
+  on the ``shapes_latent`` preset) and ``scripts/sample_latent.py``
+  (Euler-Maruyama on the ``mnist_latent2d`` preset). float32 throughout, as
+  the presets compute; the K-expert blend of ``ddim`` and ``em`` runs
+  through the ``blend_eps`` kernel and the PCA decode through ``matmul``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+import math
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
 
-from . import resolve_device
+from . import resolve_device, samplers
 from .compose import weighted
 from .convert import param_shapes, unet_torch_layout
 from .experts import ExpertStack, per_expert
 from .models.dit import DiT, make_folded_apply
+from .models.mlp import ScoreMLP
 from .models.unet import UNet
+from .ops import pca as pca_codec
+from .ops.kernels import blend_eps
 from .samplers import ddim, make_cfg_eps_fn
 from .schedules import VPSchedule
 
@@ -43,6 +54,10 @@ N_SHAPES_EXPERTS = 2
 CFG_UNET = UNet(in_channels=3, base_dim=64, channel_mults=(1, 2, 4),
                 num_classes=(10, 3), null_token=True, cross_attn=True,
                 flash_attn=True)
+# the 2-D latent score network of the shapes_latent and mnist_latent2d
+# presets
+SHAPES_LATENT_MLP = ScoreMLP(hidden=256, depth=3, out_dim=2)
+LATENT_OPS = ("ddim", "em", "avg", "ito")
 
 
 def gflop_per_image(n_steps: int = 50) -> float:
@@ -208,3 +223,99 @@ def sample_cfg(params: Any, x_init, digit: int, color: int,
         torch.tensor(list(guidance), dtype=torch.float32, device=dev))
     x = torch.as_tensor(x_init, dtype=torch.float32).to(dev)
     return ddim(eps_fn, VPSchedule(), x, n_steps)
+
+
+def load_latent_experts(trees: Sequence[Any], device=None) -> list:
+    """:func:`load_experts` in float32, the latent presets' compute type.
+    The trees it returns pass through :func:`sample_latent` without a
+    copy."""
+    return load_experts(trees, device, torch.float32)
+
+
+def load_pca(pca: Union[pca_codec.PCA, str], device=None) -> pca_codec.PCA:
+    """The PCA codec on the device (``None``: the CUDA card), from a
+    :class:`ops.pca.PCA` (``ops.pca.fit_pca``, ``convert.pca_from_numpy``)
+    or from the path prefix of its ``.npy`` files. Done once: it also lays
+    out the transposed components that ``encode`` multiplies by."""
+    dev = resolve_device(device)
+    if isinstance(pca, str):
+        return pca_codec.load_pca(pca, dev)
+    return pca.to(dev)
+
+
+@torch.no_grad()  # not inference_mode: the ito operator runs forward-mode AD
+def sample_latent(params_list: Sequence[Any], pca: pca_codec.PCA, z_init,
+                  op: str = "ddim", n_steps: int = 1000,
+                  weights: Optional[Sequence[float]] = None, xi: float = 1.0,
+                  fused_blend: bool = True, seed: int = 0,
+                  noise: Optional[torch.Tensor] = None,
+                  probes: Optional[torch.Tensor] = None, device=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Composes latent ``ScoreMLP`` experts under one of four operators and
+    decodes through the PCA: returns ``(z, images)``, the (B, k) latents and
+    the (B, size, size, 1) images clipped to [-1, 1], both float32.
+
+    ``op``:
+      * ``"ddim"``: weighted eps blend of K experts under DDIM without the
+        x0 clamp;
+      * ``"em"``: the same blend under Euler-Maruyama with churn ``xi``;
+      * ``"avg"``: two experts, fixed kappa 0.5 (the plain score average)
+        under the probability-flow ODE;
+      * ``"ito"``: two experts, the equal-density kappa from Hutchinson
+        divergences (``samplers.ito_kappa_ode`` on s = -eps_hat).
+
+    ``params_list``: the experts' trees (``convert.from_flax``, or already
+    through :func:`load_latent_experts`); ``pca``: the codec
+    (:func:`load_pca`); ``z_init``: (B, k) initial noise; ``weights``: (K,)
+    blend weights, ones by default. ``fused_blend=True`` blends through the
+    ``blend_eps`` kernel, ``False`` through ``compose.weighted``. ``em``
+    draws its noise and ``ito`` its Rademacher probes from a generator
+    seeded with ``seed`` on the device, unless ``noise=`` (n_steps, B, k) or
+    ``probes=`` (n_steps, 2, B, k) replace them. The images are square
+    with one channel: the edge is the square root of the codec's width.
+    ``device=None`` is the CUDA card (raises without one)."""
+    if op not in LATENT_OPS:
+        raise ValueError(f"op must be one of {LATENT_OPS}, got {op!r}")
+    dev = resolve_device(device)
+    model = SHAPES_LATENT_MLP
+    params = load_latent_experts(params_list, dev)
+    if op in ("avg", "ito") and len(params) != 2:
+        raise ValueError(f"op {op!r} composes exactly 2 experts, got "
+                         f"{len(params)}")
+    pca = pca.to(dev)
+    z = torch.as_tensor(z_init, dtype=torch.float32).to(dev)
+    schedule = VPSchedule()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    if op in ("ddim", "em"):
+        stack = ExpertStack(lambda p, x, t: model.apply(p, t, x), params)
+        w = torch.as_tensor([1.0] * stack.k if weights is None else weights,
+                            dtype=torch.float32).to(dev)
+        blend = blend_eps if fused_blend else weighted
+
+        def eps_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+            return blend(stack(x, t), w)
+
+        if op == "ddim":
+            z = ddim(eps_fn, schedule, z, n_steps, clip=None)
+        else:
+            if noise is not None:
+                noise = noise.to(dev)
+            z = samplers.euler_maruyama(eps_fn, schedule, gen, z, n_steps,
+                                        xi, noise=noise)
+    else:
+        # sigma-scaled scores s = -eps_hat, the samplers' net convention
+        score_fns = tuple(
+            (lambda x, t, p=p: -model.apply(p, t, x)) for p in params)
+        if op == "avg":
+            z = samplers.prob_flow_ode(
+                lambda x, t: 0.5 * (score_fns[0](x, t) + score_fns[1](x, t))
+                / schedule.sigma(t), schedule, z, n_steps)
+        else:
+            if probes is not None:
+                probes = probes.to(dev)
+            z = samplers.ito_kappa_ode(score_fns, schedule, gen, z, n_steps,
+                                       probes=probes)
+    size = math.isqrt(pca.mean.shape[0])
+    images = pca.decode(z, (size, size, 1)).clamp(-1.0, 1.0)
+    return z, images

@@ -25,7 +25,7 @@ BUILD = PKG / "build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 SOURCES = ("short_seq_attention", "fused_dit_block", "groupnorm_silu",
-           "flash_attention")
+           "flash_attention", "blend_eps", "matmul")
 
 
 def nvcc() -> str:

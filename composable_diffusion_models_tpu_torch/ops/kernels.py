@@ -1,10 +1,11 @@
-"""The DiT path's two kernels and the UNet's GroupNorm + SiLU kernel, with
-their plain PyTorch versions and wrappers (``flash_attention`` lives in
-``ops/attention.py``, as in the JAX package).
+"""The DiT path's two kernels, the UNet's GroupNorm + SiLU kernel and the
+latent path's expert blend and PCA-codec product, with their plain PyTorch
+versions and wrappers (``flash_attention`` lives in ``ops/attention.py``, as
+in the JAX package).
 
-``short_seq_attention``, ``fused_dit_block`` and ``groupnorm_silu`` are
-hand-written CUDA C++ for Hopper (``csrc/``), built with nvcc at first use
-and called through ctypes. Each wrapper validates its inputs, and then:
+``short_seq_attention``, ``fused_dit_block``, ``groupnorm_silu``,
+``blend_eps`` and ``matmul`` are hand-written CUDA C++ for Hopper
+(``csrc/``), built with nvcc at first use and called through ctypes. Each wrapper validates its inputs, and then:
 
 * for tensors on the CPU, returns its plain version (``*_ref``);
 * for tensors on the CUDA card, launches the kernel on the current stream,
@@ -375,3 +376,132 @@ def groupnorm_silu_split(parts, scale, bias, groups: int = 8,
         outs.append((y * torch.sigmoid(y)).to(p.dtype))
         off += cc
     return outs
+
+
+# ---------------------------------------------------------------- blend_eps
+def blend_eps_ref(eps_stack: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`blend_eps`: the TPU kernel body's order and
+    rounding sites (float32 accumulation over the experts in order, one
+    division by the float32 weight sum, one rounding to the stack's
+    dtype)."""
+    acc = torch.zeros(eps_stack.shape[1:], dtype=torch.float32,
+                      device=eps_stack.device)
+    wsum = torch.zeros((), dtype=torch.float32, device=eps_stack.device)
+    for i in range(eps_stack.shape[0]):
+        acc = acc + weights[i] * eps_stack[i].float()
+        wsum = wsum + weights[i]
+    return (acc / wsum).to(eps_stack.dtype)
+
+
+@functools.cache
+def _blend_fn():
+    fn = library("blend_eps").blend_eps_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def blend_eps(eps_stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """sum_i w_i eps_i / sum_i w_i over the leading expert axis of a
+    (K, B, ...) stack: the kernel form of ``compose.weighted``, in the
+    stack's dtype. The weights stay on the device; nothing is read back.
+
+    Kernel limits: float32 or bfloat16 stack, contiguous, K >= 1 (any K);
+    ``weights`` a (K,) float32 tensor on the stack's device. The per-sample
+    (K, B) weights that ``compose.weighted`` also takes are not the
+    kernel's and raise: call ``compose.weighted`` with them."""
+    if eps_stack.dim() < 2 or eps_stack.shape[0] < 1:
+        raise ValueError(f"eps_stack: expected (K, B, ...) with K >= 1, got "
+                         f"{tuple(eps_stack.shape)}")
+    if eps_stack.dtype not in _DTYPE_CODE:
+        raise ValueError(f"eps_stack: dtype {eps_stack.dtype} not supported "
+                         f"(float32 or bfloat16)")
+    if eps_stack.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"eps_stack: device {eps_stack.device} not supported")
+    if not eps_stack.is_contiguous():
+        raise ValueError("eps_stack must be contiguous")
+    k = eps_stack.shape[0]
+    if not isinstance(weights, torch.Tensor):
+        raise ValueError("weights: expected a (K,) float32 tensor on the "
+                         "stack's device")
+    if weights.dim() != 1:
+        raise ValueError(
+            f"weights: shape {tuple(weights.shape)}, expected ({k},); "
+            f"per-sample (K, B) weights go through compose.weighted")
+    _check("weights", weights, (k,), torch.float32, eps_stack.device)
+    if eps_stack.device.type == "cpu":
+        return blend_eps_ref(eps_stack, weights)
+    out = torch.empty(eps_stack.shape[1:], dtype=eps_stack.dtype,
+                      device=eps_stack.device)
+    if out.numel() == 0:
+        return out
+    rc = _blend_fn()(_DTYPE_CODE[eps_stack.dtype], _ptr(eps_stack),
+                     weights.data_ptr(), _ptr(out), out.numel(), k,
+                     _stream_ptr(eps_stack))
+    if rc:
+        raise RuntimeError(f"blend_eps kernel launch failed: CUDA error {rc}")
+    blend_eps.launches += 1
+    return out
+
+
+blend_eps.launches = 0
+
+
+# ------------------------------------------------------------------- matmul
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`matmul`: float32 product and sum, one
+    rounding to a's dtype."""
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+@functools.cache
+def _matmul_fn():
+    fn = library("matmul").matmul_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for a (M, K) and b (K, N): float32 accumulation, the result
+    (M, N) contiguous in a's dtype. The PCA codec's encode and decode
+    product.
+
+    Kernel limits: float32 or bfloat16, both operands alike and on one
+    device; any M, N, K and any strides (a transposed view is read in
+    place, a contiguous one is read faster). The TPU function's ``tile_m``
+    and ``tile_n`` are not kept: the kernel picks its tile from the
+    shape."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} are not (M, K) and (K, N)")
+    if a.dtype not in _DTYPE_CODE:
+        raise ValueError(f"a: dtype {a.dtype} not supported (float32 or "
+                         f"bfloat16)")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"a: device {a.device} not supported")
+    if b.dtype != a.dtype or b.device != a.device:
+        raise ValueError(f"b: {b.dtype} on {b.device}, expected {a.dtype} on "
+                         f"{a.device}")
+    if a.device.type == "cpu":
+        return matmul_ref(a, b)
+    (m, k), n = a.shape, b.shape[1]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if m * n == 0:
+        return out
+    if max(m, n, k) >= 2 ** 31:
+        raise ValueError(f"matmul: a dimension of {(m, k, n)} exceeds int32")
+    rc = _matmul_fn()(_DTYPE_CODE[a.dtype], a.data_ptr(), b.data_ptr(),
+                      out.data_ptr(), m, n, k, a.stride(0), a.stride(1),
+                      b.stride(0), b.stride(1), _stream_ptr(a))
+    if rc:
+        raise RuntimeError(f"matmul kernel launch failed: CUDA error {rc}")
+    matmul.launches += 1
+    return out
+
+
+matmul.launches = 0

@@ -1,9 +1,14 @@
-"""Noise schedules: the continuous VP schedule of the DDIM serving path.
+"""Noise schedules: the continuous VP schedule of the serving paths.
 
 Port of ``composable_diffusion_models_tpu.schedules.VPSchedule`` for
-``kind="stable"`` (sigma^2 = 1 - alpha^2) with linear DDIM spacing. All
-arithmetic is float32, in the JAX package's operation order, so the tables
-agree with it to float32 rounding. The other kinds and Karras spacing raise.
+``kind="stable"`` (sigma^2 = 1 - alpha^2): the rates, the SDE coefficients
+(``dlog_alpha_dt``, ``beta``, ``g2``), the forward process on given noise
+(``q_t_eps``) and the samplers' tables (``ddim_table`` with linear spacing,
+``em_table``, ``ode_table``). All arithmetic is float32, in the JAX
+package's operation order, so the tables agree with it to float32 rounding;
+they are built on the host. The other kinds, Karras spacing, ``t_of_sigma``,
+``q_t`` with its own draw and ``DDPMSchedule`` are not ported and raise or
+are absent.
 """
 
 from __future__ import annotations
@@ -42,12 +47,32 @@ class VPSchedule:
     def alpha(self, t) -> torch.Tensor:
         return torch.exp(self.log_alpha(t))
 
+    def dlog_alpha_dt(self, t) -> torch.Tensor:
+        t = _f32(t)
+        return -0.5 * self.beta_0 - 0.5 * t * (self.beta_1 - self.beta_0)
+
     def log_sigma(self, t) -> torch.Tensor:
         return 0.5 * torch.log(1.0 - torch.exp(2.0 * self.log_alpha(t))
                                + self.eps)
 
     def sigma(self, t) -> torch.Tensor:
         return torch.exp(self.log_sigma(t))
+
+    def beta(self, t) -> torch.Tensor:
+        """Reverse-SDE diffusion weight: -2 dlog_alpha/dt * sigma^2(t)."""
+        t = _f32(t)
+        return -2.0 * self.dlog_alpha_dt(t) * self.sigma(t) ** 2
+
+    def g2(self, t) -> torch.Tensor:
+        """Forward-SDE squared diffusion coefficient: -2 dlog_alpha/dt."""
+        return -2.0 * self.dlog_alpha_dt(t)
+
+    def q_t_eps(self, x0: torch.Tensor, t, eps: torch.Tensor) -> torch.Tensor:
+        """x_t = alpha(t) x0 + sigma(t) eps for given noise; ``t`` a scalar
+        or (B,), broadcast over the trailing data dims."""
+        t = _f32(t).to(x0.device)
+        a, s = _bcast(self.alpha(t), x0.dim()), _bcast(self.sigma(t), x0.dim())
+        return a * x0 + s * eps
 
     def ddim_grid(self, n_steps: int, t_max: float = 1.0, t_min: float = 1e-3,
                   spacing: str = "linear") -> torch.Tensor:
@@ -69,3 +94,33 @@ class VPSchedule:
         ts = self.ddim_grid(n_steps, t_max, t_min, spacing)
         a, s = self.alpha(ts), self.sigma(ts)
         return torch.stack([a[:-1], s[:-1], a[1:], s[1:]], dim=1)
+
+    def _step_grid(self, n_steps: int, t_max: float, t_min: float):
+        """(ts, dt) of the E-M and ODE tables: t steps down from t_max by
+        dt = (t_max - t_min) / n_steps, a Python float as in the JAX
+        package."""
+        dt = (t_max - t_min) / n_steps
+        return t_max - dt * torch.arange(n_steps, dtype=torch.float32), dt
+
+    def em_table(self, n_steps: int, t_max: float = 1.0,
+                 t_min: float = 1e-3) -> torch.Tensor:
+        """(n_steps, 5) rows (t, dlog_alpha_dt, beta, sigma, dt)."""
+        ts, dt = self._step_grid(n_steps, t_max, t_min)
+        return torch.stack(
+            [ts, self.dlog_alpha_dt(ts), self.beta(ts), self.sigma(ts),
+             torch.full((n_steps,), dt, dtype=torch.float32)], dim=1)
+
+    def ode_table(self, n_steps: int, t_max: float = 1.0,
+                  t_min: float = 1e-3) -> torch.Tensor:
+        """(n_steps, 5) rows (t, dlog_alpha_dt, g2, sigma, dt)."""
+        ts, dt = self._step_grid(n_steps, t_max, t_min)
+        return torch.stack(
+            [ts, self.dlog_alpha_dt(ts), self.g2(ts), self.sigma(ts),
+             torch.full((n_steps,), dt, dtype=torch.float32)], dim=1)
+
+
+def _bcast(coef: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Broadcast a scalar or (B,) coefficient against an ndim-array."""
+    if coef.dim() == 0:
+        return coef
+    return coef.reshape(tuple(coef.shape) + (1,) * (ndim - coef.dim()))

@@ -9,8 +9,8 @@ is installed:
 import pytest
 import torch
 
-from composable_diffusion_models_tpu_torch import convert, entry
-from composable_diffusion_models_tpu_torch.ops import attention, kernels
+from composable_diffusion_models_tpu_torch import compose, convert, entry
+from composable_diffusion_models_tpu_torch.ops import attention, kernels, pca
 
 pytestmark = pytest.mark.cuda
 
@@ -166,3 +166,93 @@ def test_unet_paths_launch_their_kernels():
     # two steps from t = 1 leave values of ~1/alpha(1) magnitude; both
     # branches are float32, so they differ by summation order only
     assert float((out - ein).abs().max()) <= 1e-4 * float(ein.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 512, 2), (3, 64, 28, 28, 1), (2, 8, 64, 64, 3), (3, 7, 5), (2, 1, 1),
+    (1, 9, 33), (5, 1000, 3)])
+def test_blend_eps_matches_plain_version(dtype, shape):
+    """The kernel keeps the plain version's order and rounding sites:
+    1e-6 of scale in float32 (a fused multiply-add on either side), the
+    shared 4-ulp bar in bf16; 1e-5 from ``compose.weighted`` in float32."""
+    g = torch.Generator().manual_seed(sum(shape))
+    eps = torch.randn(*shape, generator=g).to("cuda", dtype)
+    w = (torch.rand(shape[0], generator=g) + 0.5).cuda()
+    n0 = kernels.blend_eps.launches
+    got = kernels.blend_eps(eps, w)
+    torch.cuda.synchronize()
+    assert kernels.blend_eps.launches == n0 + 1
+    ref = kernels.blend_eps_ref(eps, w)
+    assert got.dtype == dtype and got.shape == eps.shape[1:]
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(
+        dtype, ref, 1e-6)
+    if dtype == torch.float32:
+        assert float((got - compose.weighted(eps, w)).abs().max()) <= _tol(
+            dtype, ref, 1e-5)
+
+
+def test_blend_eps_rejects_on_the_card():
+    eps = torch.zeros(2, 4, 6, device="cuda")
+    with pytest.raises(ValueError, match="compose.weighted"):
+        kernels.blend_eps(eps, torch.ones(2, 4, device="cuda"))
+    with pytest.raises(ValueError, match="on cpu"):
+        kernels.blend_eps(eps, torch.ones(2))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.blend_eps(eps.transpose(1, 2), torch.ones(2, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [
+    (10000, 4096, 2), (512, 2, 4096), (64, 2, 784), (2048, 640, 64),
+    (300, 200, 1100), (64, 32, 48), (130, 784, 2), (1, 1, 1), (7, 129, 3),
+    (33, 5, 65), (5, 0, 3)])
+def test_matmul_matches_plain_version(dtype, m, k, n):
+    """float32: two sums of K products in different orders,
+    2 * 2^-23 sqrt(K) of scale; bf16: one rounding at the store, the
+    shared 4-ulp bar. Contiguous operands, and each one as a transposed
+    view."""
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randn(m, k, generator=g).to("cuda", dtype)
+    b = torch.randn(k, n, generator=g).to("cuda", dtype)
+    n0 = kernels.matmul.launches
+    got = kernels.matmul(a, b)
+    got_t = kernels.matmul(a, b.t().contiguous().t())
+    got_at = kernels.matmul(a.t().contiguous().t(), b)
+    torch.cuda.synchronize()
+    assert kernels.matmul.launches == n0 + 3
+    ref = kernels.matmul_ref(a, b)
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
+    tol = _tol(dtype, ref, 2 * 2.0 ** -23 * max(1, k) ** 0.5)
+    for out in (got, got_t, got_at):
+        assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+def test_latent_path_launches_its_kernels():
+    """Full width, small data, 3 steps: one blend_eps launch per step for
+    ddim and em, none for avg and ito; one matmul launch per encode and
+    per decode."""
+    g = torch.Generator().manual_seed(0)
+    imgs = torch.rand(256, 16, 16, 1, generator=g).cuda()
+    n0 = kernels.matmul.launches
+    codec = pca.fit_pca(imgs, 2)
+    z_all = codec.encode(imgs)
+    assert kernels.matmul.launches == n0 + 1 and z_all.shape == (256, 2)
+    trees = [convert.from_flax(convert.init_params(entry.SHAPES_LATENT_MLP,
+                                                   seed=i)) for i in range(2)]
+    z0 = torch.randn(32, 2, generator=g)
+    for op in entry.LATENT_OPS:
+        b0, m0 = kernels.blend_eps.launches, kernels.matmul.launches
+        z, out = entry.sample_latent(trees, codec, z0, op=op, n_steps=3)
+        torch.cuda.synchronize()
+        assert kernels.blend_eps.launches - b0 == (
+            3 if op in ("ddim", "em") else 0)
+        assert kernels.matmul.launches - m0 == 1
+        assert z.is_cuda and out.shape == (32, 16, 16, 1)
+        assert bool(torch.isfinite(out).all())
+    z_k, _ = entry.sample_latent(trees, codec, z0, op="ddim", n_steps=3,
+                                 weights=(0.7, 1.9))
+    z_p, _ = entry.sample_latent(trees, codec, z0, op="ddim", n_steps=3,
+                                 weights=(0.7, 1.9), fused_blend=False)
+    # float32 both ways; at most a rounding per blend differs
+    assert float((z_k - z_p).abs().max()) <= 1e-4 * float(z_p.abs().max())

@@ -134,6 +134,11 @@ def test_port_imports_nothing_of_jax():
             for p in sorted(PKG.rglob("*.py"))]
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods] + ["chip_smoke"]
+    # the walk reaches every slice's modules, the latent slice's included
+    assert {PKG.name + "." + m for m in (
+        "models.dit", "models.unet", "models.mlp", "ops.kernels",
+        "ops.attention", "ops.pca", "ops.divergence", "compose", "samplers",
+        "schedules", "convert", "entry")} <= set(mods)
     code = ("import sys\n"
             + "".join(f"sys.modules[{n!r}] = None\n" for n in _FORBIDDEN)
             + "import importlib\n"
