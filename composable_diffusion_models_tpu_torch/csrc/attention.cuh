@@ -66,46 +66,110 @@ __device__ __forceinline__ void store_f(T* p, const float (&in)[N]) {
   }
 }
 
-template <typename T, int HD>
-__device__ __forceinline__ float score(const float (&q)[HD], const T* k,
-                                       float scale) {
+// A tile of rows addressed as (row, column): at(r, c) points at the 16-byte
+// vector that starts at column c (a multiple of 16 bytes of elements) of row
+// r. RowMajor is a plain row-major matrix; a kernel that keeps its tile in
+// another shared-memory layout passes its own address function.
+template <typename T> struct RowMajor {
+  T* p;
+  int ld;
+  __device__ __forceinline__ T* at(int r, int c) const {
+    return p + (size_t)r * ld + c;
+  }
+};
+
+// HD elements of row r from column c on, one 16-byte vector at a time
+template <typename T, int HD, class Tile>
+__device__ __forceinline__ void load_row(const Tile& t, int r, int c,
+                                         float (&out)[HD]) {
+  constexpr int VEC = 16 / sizeof(T);
+  static_assert(HD % VEC == 0, "head width must be whole 16-byte vectors");
+#pragma unroll
+  for (int v = 0; v < HD / VEC; ++v)
+    load_f<T, VEC>(t.at(r, c + v * VEC),
+                   reinterpret_cast<float(&)[VEC]>(out[v * VEC]));
+}
+
+template <typename T, int HD, class Tile>
+__device__ __forceinline__ void store_row(const Tile& t, int r, int c,
+                                          const float (&in)[HD]) {
+  constexpr int VEC = 16 / sizeof(T);
+#pragma unroll
+  for (int v = 0; v < HD / VEC; ++v)
+    store_f<T, VEC>(t.at(r, c + v * VEC),
+                    reinterpret_cast<const float(&)[VEC]>(in[v * VEC]));
+}
+
+template <typename T, int HD, class Tile>
+__device__ __forceinline__ float score(const float (&q)[HD], const Tile& t,
+                                       int r, int c, float scale) {
   float kf[HD];
-  load_f<T, HD>(k, kf);
+  load_row<T, HD>(t, r, c, kf);
   float s = 0.f;
 #pragma unroll
   for (int e = 0; e < HD; ++e) s = fmaf(q[e], kf[e], s);
   return s * scale;
 }
 
+constexpr int SHORT_T = 8;  // sequences whose scores a thread keeps
+
 // Attention output of query i, head h, for one image whose packed qkv rows
-// ([q | k | v] x [head] x [HD], row stride ld) start at img. The HD outputs
-// go to out + i * ld_out + h * HD. out may alias img: the query row is read
-// in full before the output is written, and no other (i, h) reads it.
-template <typename T, int HD>
-__device__ void attend_query(const T* img, int ld, T* out, int ld_out, int i,
-                             int h, int n_tok, int d, float scale) {
+// ([q | k | v] x [head] x [HD]) are rows 0 .. n_tok - 1 of in. The HD outputs
+// go to row i, columns h * HD .. of out. out may alias in: the query row is
+// read in full before the output is written, and no other (i, h) reads it.
+template <typename T, int HD, class In, class Out>
+__device__ void attend_query(const In& in, const Out& out, int i, int h,
+                             int n_tok, int d, float scale) {
   float q[HD];
-  load_f<T, HD>(img + (size_t)i * ld + h * HD, q);
-  const T* kb = img + d + h * HD;
-  const T* vb = img + 2 * d + h * HD;
-  float m = -INFINITY;
-  for (int j = 0; j < n_tok; ++j)
-    m = fmaxf(m, score<T, HD>(q, kb + (size_t)j * ld, scale));
-  float l = 0.f;
-  for (int j = 0; j < n_tok; ++j)
-    l += expf(score<T, HD>(q, kb + (size_t)j * ld, scale) - m);
+  load_row<T, HD>(in, i, h * HD, q);
+  const int kc = d + h * HD, vc = 2 * d + h * HD;
   float acc[HD];
 #pragma unroll
   for (int e = 0; e < HD; ++e) acc[e] = 0.f;
-  for (int j = 0; j < n_tok; ++j) {
-    const float p = round_to<T>(
-        expf(score<T, HD>(q, kb + (size_t)j * ld, scale) - m) / l);
-    float v[HD];
-    load_f<T, HD>(vb + (size_t)j * ld, v);
+  if (n_tok <= SHORT_T) {
+    // few keys: each score is computed once and kept; the values and the
+    // order of every sum are those of the three passes below
+    float s[SHORT_T];
+    float m = -INFINITY;
 #pragma unroll
-    for (int e = 0; e < HD; ++e) acc[e] = fmaf(p, v[e], acc[e]);
+    for (int j = 0; j < SHORT_T; ++j)
+      if (j < n_tok) {
+        s[j] = score<T, HD>(q, in, j, kc, scale);
+        m = fmaxf(m, s[j]);
+      }
+    float l = 0.f;
+#pragma unroll
+    for (int j = 0; j < SHORT_T; ++j)
+      if (j < n_tok) {
+        s[j] = expf(s[j] - m);
+        l += s[j];
+      }
+#pragma unroll
+    for (int j = 0; j < SHORT_T; ++j)
+      if (j < n_tok) {
+        const float p = round_to<T>(s[j] / l);
+        float v[HD];
+        load_row<T, HD>(in, j, vc, v);
+#pragma unroll
+        for (int e = 0; e < HD; ++e) acc[e] = fmaf(p, v[e], acc[e]);
+      }
+  } else {
+    float m = -INFINITY;
+    for (int j = 0; j < n_tok; ++j)
+      m = fmaxf(m, score<T, HD>(q, in, j, kc, scale));
+    float l = 0.f;
+    for (int j = 0; j < n_tok; ++j)
+      l += expf(score<T, HD>(q, in, j, kc, scale) - m);
+    for (int j = 0; j < n_tok; ++j) {
+      const float p =
+          round_to<T>(expf(score<T, HD>(q, in, j, kc, scale) - m) / l);
+      float v[HD];
+      load_row<T, HD>(in, j, vc, v);
+#pragma unroll
+      for (int e = 0; e < HD; ++e) acc[e] = fmaf(p, v[e], acc[e]);
+    }
   }
-  store_f<T, HD>(out + (size_t)i * ld_out + h * HD, acc);
+  store_row<T, HD>(out, i, h * HD, acc);
 }
 
 }  // namespace cdm

@@ -15,72 +15,101 @@
 //
 // Design. The TPU kernel holds all four weight matrices in VMEM; a Hopper
 // block has 227 KB of shared memory, less than the 1.5 MiB of weights. So
-// the roles flip: a tile of MT token rows (whole images) stays resident in
-// shared memory for the whole block -- the residual x, the LayerNorm
-// output, and the 4D-wide buffer that holds first qkv, then the attention
-// output (written over q in place), then the GELU hidden -- and the weights
-// stream through in 32 x 128 k-tiles from L2, where all 1.5 MiB stay
-// resident across the blocks of a launch. Nothing but x goes to or from
-// device memory. The bf16 GEMMs run on the tensor cores with mma.sync
-// m16n8k16 (fp32 accumulation), 8 warps as 2 x 4 over a 64 x 128 output
-// chunk; the fp32 variant (for holding the kernel to its plain version
-// without bf16 rounding) runs the same tiling as fp32 FMAs. Attention is
-// per image and head with no packing mask (attention.cuh).
+// the roles flip: a tile of 64 token rows (whole images) stays resident in
+// shared memory for the whole block -- the residual x and the 4D-wide
+// buffer that holds first qkv, then the attention output (written over q in
+// place), then the GELU hidden -- and the weights stream through from L2.
+// Nothing but x goes to or from device memory.
+//
+// The bf16 kernel (the one the serving path runs) is warp-specialised,
+// 3 warpgroups a block, one block an SM:
+//   * Warpgroup 0 produces. It walks the k-tiles (32 x 128) of all four
+//     weight matrices in the order the consumers take them and copies each
+//     into a ring of 8 stages with 16-byte cp.async, as far ahead as there
+//     are free stages: across k-tiles, N chunks and GEMMs, so the next
+//     GEMM's first tiles load during this one's epilogue and during
+//     LayerNorm and attention. A thread leaves, behind its copies of a tile,
+//     an arrival on the stage's "full" mbarrier that fires when they have
+//     landed (cp.async.mbarrier.arrive.noinc); it never waits for data. The
+//     copies are cp.async and not TMA tensor copies for two reasons, both
+//     measured: the folded weights are new tensors at every launch, so four
+//     tensor maps would be encoded on the host per launch, on a path whose
+//     pace the host sets; and with TMA (one thread issuing, with and
+//     without multicast to a cluster of 2 or 4 blocks) the kernel was no
+//     faster, because the weight stream is not what holds it (below).
+//   * Warpgroups 1 and 2 consume with wgmma.mma_async m64n128k16 (bf16 in,
+//     fp32 accumulators in registers), B from the stage through a
+//     shared-memory descriptor. A GEMM's 128-column output chunks are taken
+//     two at a time, one by each warpgroup, whole, and the pair's k-tiles
+//     alternate in the ring, so both warpgroups run at once whatever the
+//     number of chunks. For the qkv and W1 GEMMs A = LN(x) sits in
+//     registers: each thread normalises its own wgmma fragments straight
+//     from x (64 registers at D = 256, kept across the GEMM's chunks), so
+//     LN(x) needs no buffer and that room goes to the ring. For the proj
+//     and W2 GEMMs A comes from the wide buffer through a descriptor. One
+//     k-tile's group of wgmma stays in flight while the next is sent; a
+//     stage goes back through its "empty" mbarrier once the group that read
+//     it has completed. No block-wide barrier remains inside a GEMM. The
+//     tile was written through the generic proxy and wgmma reads through
+//     the async proxy: the consumer's fence.proxy.async after its wait on
+//     "full" stands between the two.
+// Registers: setmaxnreg gives the producer 40 and the consumers 232.
+// Shared-memory layouts follow wgmma's canonical 128-byte-swizzled forms.
+// The wide buffer (A operand, K-major) is panels of 64 rows x 64 columns,
+// a row 128 bytes, the 16-byte chunk c of row r stored at chunk
+// c ^ (r % 8). A weight stage (B operand, N-major: the folded weights are
+// (K, N) row-major and are read as they are, through the descriptor's
+// transpose bit) is two panels of 32 k-rows x 64 columns in the same
+// swizzle. Attention and the epilogues address the panels through one
+// function (sw_off). The residual x is only read and written by threads and
+// stays row-major, padded.
+//
+// What holds the bf16 kernel after this (phase clocks read inside the
+// kernel at the serving shape): not the tensor cores and not L2 (a quarter
+// of the blocks take the same time) but everything that is not wgmma, run by
+// 8 warps an SM with nothing to hide a latency behind: the epilogues
+// (bias, GELU, rounding, swizzled stores) take as long as the k-loops, and
+// attention, LayerNorm and the tile's load and store another third. Every
+// block still reads all 12 D^2 weights from L2 (1.57 MB x 128 blocks = 201
+// MB per launch).
+//
+// The float32 kernel exists to hold the block to its plain version without
+// bf16 rounding. It keeps a synchronous design: fp32 FMAs over one staged
+// k-tile at a time, 8 warps, a tile of 16, 32 or 64 rows.
 //
 // Numerics follow the Pallas kernel: LayerNorm with fp32 stats (clamped
 // one-pass variance, eps 1e-6, no affine) rounded to the stream type; each
 // GEMM accumulates in fp32, adds its bias in fp32 and rounds once; GELU
 // (tanh form) of the rounded value, rounded again; residual adds of two
-// stream-type values, rounded once.
+// stream-type values, rounded once. The two types evaluate the GELU
+// differently between those two roundings. float32: x * 0.5 (1 + tanhf(u)),
+// u = sqrt(2 / pi) (x + 0.044715 x^3), as the plain version does. bfloat16:
+// the same function as x / (1 + exp(-2u)) with __expf and __fdividef
+// (ex2.approx, rcp.approx: ~2 float32 ulps, 2^-15 of a bf16 ulp, before
+// the rounding to bf16). It saturates as the tanh form does: for x > ~10
+// exp(-2u) is 0 and the result is x; for x < ~-10 the divisor passes 2^126,
+// where __fdividef returns 0 and the tanh form x * 0.5 (1 - 1) does too.
 #include "attention.cuh"
 
 namespace cdm {
 
-constexpr int NTHREADS = 256;  // 8 warps
+constexpr int NTHREADS = 256;  // float32 kernel: 8 warps
 constexpr int KT = 32;         // weight rows per staged k-tile
 constexpr int NC = 128;        // output columns per GEMM chunk
 constexpr int PAD = 8;         // row padding (elements): conflict-free rows
-
-// ---------------------------------------------------------------- helpers
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float k = 0.7978845608028654f;  // sqrt(2 / pi)
   return x * (0.5f * (1.0f + tanhf(k * (x + 0.044715f * (x * x * x)))));
 }
 
+// ===================================================== float32 kernel
 // Ws[KT][NC + PAD] = W[k0 : k0 + KT, n0 : n0 + NC], zero beyond column N
-template <typename T>
-__device__ __forceinline__ void stage_w(const T* W, int N, int k0, int n0,
-                                        T* Ws) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = NC / VEC;
+__device__ __forceinline__ void stage_w(const float* W, int N, int k0, int n0,
+                                        float* Ws) {
+  constexpr int VPR = NC / 4;
   for (int v = threadIdx.x; v < KT * VPR; v += NTHREADS) {
-    const int r = v / VPR, c = (v % VPR) * VEC;
+    const int r = v / VPR, c = (v % VPR) * 4;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (n0 + c < N)
       val = *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * N + n0 + c);
@@ -88,88 +117,30 @@ __device__ __forceinline__ void stage_w(const T* W, int N, int k0, int n0,
   }
 }
 
-// ------------------------------------------------------------- epilogues
-template <typename T> struct EpiStore {  // dst = T(acc + bias)
-  T* dst; int ld; const T* bias;
+struct EpiStore {  // dst = acc + bias
+  float* dst; int ld; const float* bias;
   __device__ void operator()(int r, int c, float v) const {
-    dst[r * ld + c] = from_f<T>(v + to_f(bias[c]));
+    dst[r * ld + c] = v + bias[c];
   }
 };
 
-template <typename T> struct EpiGelu {  // dst = T(gelu(T(acc + bias)))
-  T* dst; int ld; const T* bias;
+struct EpiGelu {  // dst = gelu(acc + bias)
+  float* dst; int ld; const float* bias;
   __device__ void operator()(int r, int c, float v) const {
-    dst[r * ld + c] = from_f<T>(gelu_tanh(round_to<T>(v + to_f(bias[c]))));
+    dst[r * ld + c] = gelu_tanh(v + bias[c]);
   }
 };
 
-template <typename T> struct EpiResidual {  // x = T(x + T(acc + bias))
-  T* x; int ld; const T* bias;
+struct EpiResidual {  // x += acc + bias
+  float* x; int ld; const float* bias;
   __device__ void operator()(int r, int c, float v) const {
-    x[r * ld + c] =
-        from_f<T>(to_f(x[r * ld + c]) + round_to<T>(v + to_f(bias[c])));
+    x[r * ld + c] = x[r * ld + c] + (v + bias[c]);
   }
 };
 
-// --------------------------------------------------------------- GEMMs
 // out = A @ W through the epilogue, for the tile's MT rows. A: shared
-// [MT][lda]; W: global [K][N] row-major, K a multiple of KT, N of 8.
+// [MT][lda]; W: global [K][N] row-major, K a multiple of KT, N of 4.
 // Ends with a barrier, so the next phase sees every result.
-template <int MT, class Epi>
-__device__ void tile_gemm(const bf16* A, int lda, const bf16* W, int K, int N,
-                          bf16* Ws, const Epi& epi) {
-  static_assert(MT == 64, "the mma tiling covers 64 rows: 2 x 4 warps");
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % 2, wn = warp / 2;  // 32 rows x 32 columns each
-  const int lrow = (lane % 8) + ((lane / 8) % 2) * 8, lcol = (lane / 16) * 8;
-  for (int n0 = 0; n0 < N; n0 += NC) {
-    float acc[2][4][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += KT) {
-      __syncthreads();  // every warp is done with the previous k-tile
-      stage_w(W, N, k0, n0, Ws);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KT; kk += 16) {
-        uint32_t a[2][4], b[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4(a[mi], A + (wm * 32 + mi * 16 + lrow) * lda + k0 + kk +
-                                 lcol);
-#pragma unroll
-        for (int nj = 0; nj < 2; ++nj)
-          ldmatrix_x4_trans(
-              b[nj], Ws + (kk + lrow) * (NC + PAD) + wn * 32 + nj * 16 + lcol);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-            mma_bf16(acc[mi][ni], a[mi], b[ni / 2][(ni % 2) * 2],
-                     b[ni / 2][(ni % 2) * 2 + 1]);
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int r = wm * 32 + mi * 16 + lane / 4;
-        const int c = n0 + wn * 32 + ni * 8 + (lane % 4) * 2;
-        if (c < N) {
-          epi(r, c, acc[mi][ni][0]);
-          epi(r, c + 1, acc[mi][ni][1]);
-          epi(r + 8, c, acc[mi][ni][2]);
-          epi(r + 8, c + 1, acc[mi][ni][3]);
-        }
-      }
-  }
-  __syncthreads();
-}
-
 template <int MT, class Epi>
 __device__ void tile_gemm(const float* A, int lda, const float* W, int K,
                           int N, float* Ws, const Epi& epi) {
@@ -182,7 +153,7 @@ __device__ void tile_gemm(const float* A, int lda, const float* W, int K,
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
     for (int k0 = 0; k0 < K; k0 += KT) {
-      __syncthreads();
+      __syncthreads();  // every warp is done with the previous k-tile
       stage_w(W, N, k0, n0, Ws);
       __syncthreads();
 #pragma unroll 4
@@ -210,74 +181,80 @@ __device__ void tile_gemm(const float* A, int lda, const float* W, int K,
   __syncthreads();
 }
 
-// Y[r] = T(LN(X[r])) for the tile's MT rows: fp32 stats, clamped one-pass
-// variance, eps 1e-6, no affine. One warp per row.
-template <typename T, int MT>
-__device__ void layer_norm(const T* X, int ldx, T* Y, int ldy, int d) {
+// Mean and 1 / sqrt(var + 1e-6) of one row of d elements, by one warp:
+// fp32 stats, clamped one-pass variance.
+template <typename T>
+__device__ __forceinline__ void row_stats(const T* row, int d, int lane,
+                                          float& mu, float& inv) {
   constexpr int VEC = 16 / sizeof(T);
+  float s = 0.f, ss = 0.f;
+  for (int c = lane * VEC; c < d; c += 32 * VEC) {
+    float v[VEC];
+    load_f<T, VEC>(row + c, v);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      s += v[e];
+      ss += v[e] * v[e];
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  }
+  mu = s / d;
+  inv = 1.f / sqrtf(fmaxf(0.f, ss / d - mu * mu) + 1e-6f);
+}
+
+// Y[r] = LN(X[r]) for the tile's MT rows, no affine. One warp per row.
+template <int MT>
+__device__ void layer_norm(const float* X, int ldx, float* Y, int ldy, int d) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < MT; r += NTHREADS / 32) {
-    float s = 0.f, ss = 0.f;
-    for (int c = lane * VEC; c < d; c += 32 * VEC) {
-      float v[VEC];
-      load_f<T, VEC>(X + r * ldx + c, v);
+    float mu, inv;
+    row_stats(X + r * ldx, d, lane, mu, inv);
+    for (int c = lane * 4; c < d; c += 32 * 4) {
+      float v[4];
+      load_f<float, 4>(X + r * ldx + c, v);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        s += v[e];
-        ss += v[e] * v[e];
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    const float mu = s / d;
-    const float var = fmaxf(0.f, ss / d - mu * mu);
-    const float inv = 1.f / sqrtf(var + 1e-6f);
-    for (int c = lane * VEC; c < d; c += 32 * VEC) {
-      float v[VEC];
-      load_f<T, VEC>(X + r * ldx + c, v);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) v[e] = (v[e] - mu) * inv;
-      store_f<T, VEC>(Y + r * ldy + c, v);
+      for (int e = 0; e < 4; ++e) v[e] = (v[e] - mu) * inv;
+      store_f<float, 4>(Y + r * ldy + c, v);
     }
   }
   __syncthreads();
 }
 
-// Shared memory of one block, in bytes: X and A [MT][D + PAD], the wide
-// buffer [MT][4D + PAD], the weight k-tile [KT][NC + PAD].
-template <typename T>
-__host__ __device__ constexpr size_t smem_bytes(int mt, int d) {
-  return sizeof(T) * ((size_t)mt * (d + PAD) * 2 + (size_t)mt * (4 * d + PAD) +
-                      (size_t)KT * (NC + PAD));
+// Shared memory of one float32 block, in bytes: X and A [MT][D + PAD], the
+// wide buffer [MT][4D + PAD], the weight k-tile [KT][NC + PAD].
+__host__ __device__ constexpr size_t smem_bytes_f32(int mt, int d) {
+  return sizeof(float) * ((size_t)mt * (d + PAD) * 2 +
+                          (size_t)mt * (4 * d + PAD) + (size_t)KT * (NC + PAD));
 }
 
-// ---------------------------------------------------------------- kernel
-template <typename T, int MT, int HD>
+template <int MT, int HD>
 __global__ void __launch_bounds__(NTHREADS)
-fused_dit_block_kernel(const T* tok, const T* wqkv, const T* bqkv,
-                       const T* wpr, const T* bpr, const T* w1, const T* b1,
-                       const T* w2, const T* b2, T* out, int n_img, int n_tok,
-                       int d, int imgs_per_tile, float scale) {
+fused_dit_block_f32_kernel(const float* tok, const float* wqkv,
+                           const float* bqkv, const float* wpr,
+                           const float* bpr, const float* w1, const float* b1,
+                           const float* w2, const float* b2, float* out,
+                           int n_img, int n_tok, int d, int imgs_per_tile,
+                           float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ldx = d + PAD, ldq = 4 * d + PAD;
-  T* X = reinterpret_cast<T*>(smem_raw);
-  T* A = X + MT * ldx;
-  T* Q = A + MT * ldx;
-  T* Ws = Q + MT * ldq;
+  float* X = reinterpret_cast<float*>(smem_raw);
+  float* A = X + MT * ldx;
+  float* Q = A + MT * ldx;
+  float* Ws = Q + MT * ldq;
   const int n_heads = d / HD;
   const int img0 = blockIdx.x * imgs_per_tile;
   const int imgs = min(imgs_per_tile, n_img - img0);
   const int rows = imgs * n_tok;
   const size_t g0 = (size_t)img0 * n_tok * d;
-  constexpr int VEC = 16 / sizeof(T);
-  const int vpr = d / VEC;
+  const int vpr = d / 4;
 
   // residual tile in; rows past the tile's images are zero
   for (int v = threadIdx.x; v < MT * vpr; v += NTHREADS) {
-    const int r = v / vpr, c = (v % vpr) * VEC;
+    const int r = v / vpr, c = (v % vpr) * 4;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows)
       val = *reinterpret_cast<const uint4*>(tok + g0 + (size_t)r * d + c);
@@ -286,55 +263,679 @@ fused_dit_block_kernel(const T* tok, const T* wqkv, const T* bqkv,
   __syncthreads();
 
   // attention half: qkv into Q[:, 0:3D], attention output over Q[:, 0:D]
-  layer_norm<T, MT>(X, ldx, A, ldx, d);
-  tile_gemm<MT>(A, ldx, wqkv, d, 3 * d, Ws, EpiStore<T>{Q, ldq, bqkv});
+  layer_norm<MT>(X, ldx, A, ldx, d);
+  tile_gemm<MT>(A, ldx, wqkv, d, 3 * d, Ws, EpiStore{Q, ldq, bqkv});
   for (int p = threadIdx.x; p < imgs * n_heads * n_tok; p += NTHREADS) {
     const int im = p / (n_heads * n_tok), rem = p % (n_heads * n_tok);
-    T* img = Q + im * n_tok * ldq;
-    attend_query<T, HD>(img, ldq, img, ldq, rem % n_tok, rem / n_tok, n_tok,
-                        d, scale);
+    const RowMajor<float> img{Q + im * n_tok * ldq, ldq};
+    attend_query<float, HD>(img, img, rem % n_tok, rem / n_tok, n_tok, d,
+                            scale);
   }
   __syncthreads();
-  tile_gemm<MT>(Q, ldq, wpr, d, d, Ws, EpiResidual<T>{X, ldx, bpr});
+  tile_gemm<MT>(Q, ldq, wpr, d, d, Ws, EpiResidual{X, ldx, bpr});
 
   // MLP half: GELU hidden into Q[:, 0:4D]
-  layer_norm<T, MT>(X, ldx, A, ldx, d);
-  tile_gemm<MT>(A, ldx, w1, d, 4 * d, Ws, EpiGelu<T>{Q, ldq, b1});
-  tile_gemm<MT>(Q, ldq, w2, 4 * d, d, Ws, EpiResidual<T>{X, ldx, b2});
+  layer_norm<MT>(X, ldx, A, ldx, d);
+  tile_gemm<MT>(A, ldx, w1, d, 4 * d, Ws, EpiGelu{Q, ldq, b1});
+  tile_gemm<MT>(Q, ldq, w2, 4 * d, d, Ws, EpiResidual{X, ldx, b2});
 
   for (int v = threadIdx.x; v < rows * vpr; v += NTHREADS) {
-    const int r = v / vpr, c = (v % vpr) * VEC;
+    const int r = v / vpr, c = (v % vpr) * 4;
     *reinterpret_cast<uint4*>(out + g0 + (size_t)r * d + c) =
         *reinterpret_cast<const uint4*>(X + r * ldx + c);
   }
 }
 
-template <typename T, int MT, int HD>
-static int launch(const void* const* p, void* out, int n_img, int n_tok,
-                  int d, float scale, cudaStream_t stream) {
-  auto kern = fused_dit_block_kernel<T, MT, HD>;
-  const size_t smem = smem_bytes<T>(MT, d);
+// ==================================================== bfloat16 kernel
+constexpr int MT16 = 64;          // token rows per block: wgmma's M
+constexpr int WG = 128;           // threads of a warpgroup
+constexpr int CONSUMERS = 2 * WG;
+constexpr int THREADS16 = 3 * WG;
+constexpr int STAGES = 8;         // weight stages in the ring
+constexpr int MAX_D = 256;        // widest stream the 64-row tile fits
+constexpr int A_REGS = MAX_D / 16 * 4;  // LN(x) as wgmma A fragments
+constexpr int PANEL_BYTES = MT16 * 128;         // 64 rows x 64 bf16
+constexpr int HALF_BYTES = KT * 128;            // 32 k-rows x 64 bf16
+constexpr int STAGE_BYTES = 2 * HALF_BYTES;     // one half per consumer
+
+// Byte offset of element (r, c) in a buffer of 128-byte-swizzled panels of
+// 64 columns: the layout wgmma reads (see the header).
+__device__ __forceinline__ uint32_t sw_off(int r, int c) {
+  return (uint32_t)((c >> 6) * PANEL_BYTES + r * 128 +
+                    ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1));
+}
+
+// Rows row0 .. of a swizzled buffer as a tile for attention.cuh
+struct SwTile {
+  unsigned char* base;
+  int row0;
+  __device__ __forceinline__ bf16* at(int r, int c) const {
+    return reinterpret_cast<bf16*>(base + sw_off(row0 + r, c));
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spins until the barrier's phase of the given parity has completed. A wait
+// of more than two seconds is a protocol fault: the block traps, and the
+// launch ends in an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  unsigned long long start = 0;
+  for (uint32_t spins = 0;; ++spins) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spins & 1023u) == 1023u) {
+      unsigned long long now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (start == 0) start = now;
+      if (now - start > 2000000000ull) __trap();
+    }
+  }
+}
+
+// 16 bytes global -> shared; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's earlier shared-memory writes visible to wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier over the 256 consumer threads only (the producer runs ahead)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1): start
+// address; stride byte offset 1024, from one group of 8 rows of 128 bytes to
+// the next; leading byte offset lbo, for an N-major operand wider than 64
+// columns the stride from one 64-column panel to the next (not read for a
+// K-major operand).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// acc (64 x 128, fp32) += A (64 x 16, K-major) @ B (16 x 128, N-major), both
+// from shared memory: scale-d 1 (accumulate), scale-a 1, scale-b 1, A not
+// transposed, B transposed (N-major).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      " %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The same with A (64 x 16) from registers: a0..a3 are this thread's
+// fragment, rows lane / 4 and + 8 of its warp's 16, columns 2 * (lane % 4)
+// + {0, 1} and + 8.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// The ring: stage s is STAGE_BYTES at stage0 + s * STAGE_BYTES. Producer
+// and consumers count the same tiles t = 0, 1, ...; tile t lives in stage
+// t % STAGES in round t / STAGES. empty[s] completes a phase each time the
+// stage is handed back, whoever held it. A stage has one "full" mbarrier
+// per consumer warpgroup, full[w][s], which completes a phase for each tile
+// of w's that lands there: a warpgroup only ever waits for the next phase of
+// its own barrier, so it cannot mistake an older phase for the one it wants,
+// however far the other warpgroup has run ahead in the ring.
+struct Ring {
+  uint32_t stage0, full0, empty0;
+  __device__ __forceinline__ uint32_t stage(int s) const {
+    return stage0 + s * STAGE_BYTES;
+  }
+  __device__ __forceinline__ uint32_t full(int w, int s) const {
+    return full0 + 8 * (w * STAGES + s);
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return empty0 + 8 * s;
+  }
+};
+
+struct Weight {
+  const bf16* w;
+  int k, n;
+};
+
+// The producer's walk over the k-tiles of the four GEMMs, in the consumers'
+// order: a GEMM's chunks two at a time, the pair's k-tiles in turn (see
+// gemm_wgmma).
+struct TileWalk {
+  int g, pair0, k0, w;
+  __device__ void next(const Weight (&gemms)[4]) {
+    const int K = gemms[g].k, N = gemms[g].n;
+    if (w == 0 && pair0 + NC < N) { w = 1; return; }
+    w = 0;
+    if ((k0 += KT) < K) return;
+    k0 = 0;
+    if ((pair0 += 2 * NC) < N) return;
+    pair0 = 0;
+    ++g;
+  }
+};
+
+// Warpgroup 0: copies every k-tile into the ring, as far ahead as there are
+// free stages. Each thread copies its 4 vectors of a tile with cp.async and
+// leaves an arrival on the tile's "full" barrier that fires when those
+// copies have landed (cp.async.mbarrier.arrive.noinc): the thread itself
+// never waits for data, only for a free stage.
+__device__ void produce_weights(const Weight (&gemms)[4], const Ring& ring) {
+  const int p = threadIdx.x;  // 0 .. WG - 1
+  int total = 0;
+  for (int g = 0; g < 4; ++g)
+    total += gemms[g].k / KT * ((gemms[g].n + NC - 1) / NC);
+  TileWalk at{0, 0, 0, 0};
+  for (int t = 0; t < total; ++t) {
+    const int s = t % STAGES;
+    // the consumer has released what this stage held a round ago
+    mbar_wait(ring.empty(s), ((t / STAGES) & 1) ^ 1);
+    const bf16* W = gemms[at.g].w;
+    const int N = gemms[at.g].n, n0 = at.pair0 + at.w * NC;
+#pragma unroll
+    for (int i = 0; i < KT * (NC / 8) / WG; ++i) {
+      const int idx = p + WG * i;
+      const int kr = idx / (NC / 8), cn = idx % (NC / 8);
+      const int col = n0 + cn * 8;
+      const bool in = col < N;  // columns past N are zero
+      cp_async16(ring.stage(s) + (cn >> 3) * HALF_BYTES + kr * 128 +
+                     (((cn & 7) ^ (kr & 7)) << 4),
+                 W + (size_t)(at.k0 + kr) * N + (in ? col : 0), in ? 16 : 0);
+    }
+    // one arrival on the tile's "full" barrier when this thread's copies
+    // of it have landed
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                     ring.full(at.w, s))
+                 : "memory");
+    at.next(gemms);
+  }
+  cp_async_wait<0>();
+}
+
+// Epilogues of the bf16 GEMMs, on a pair of neighbouring columns c, c + 1
+// (c even) of row r; v0, v1 are the fp32 sums with the bias added.
+struct EpiStore16 {  // Q = bf16(acc + bias)
+  unsigned char* q;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    *reinterpret_cast<__nv_bfloat162*>(q + sw_off(r, c)) =
+        __floats2bfloat162_rn(v0, v1);
+  }
+};
+
+// tanh-GELU of a bf16 value for a bf16 result. 0.5 (1 + tanh(u)) is
+// sigmoid(2u), so gelu(x) = x / (1 + exp(-2u)): one ex2.approx and one
+// rcp.approx (~2 float32 ulps, 2^-15 of a bf16 ulp, gone in the rounding
+// that follows) where tanhf costs ~5x the instructions of the whole
+// epilogue.
+__device__ __forceinline__ float gelu_tanh16(float x) {
+  const float k2 = 2.0f * 0.7978845608028654f;  // 2 sqrt(2 / pi)
+  return __fdividef(x, 1.0f + __expf(-k2 * (x + 0.044715f * (x * x * x))));
+}
+
+struct EpiGelu16 {  // Q = bf16(gelu(bf16(acc + bias)))
+  unsigned char* q;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    *reinterpret_cast<__nv_bfloat162*>(q + sw_off(r, c)) =
+        __floats2bfloat162_rn(gelu_tanh16(round_to<bf16>(v0)),
+                              gelu_tanh16(round_to<bf16>(v1)));
+  }
+};
+
+struct EpiResidual16 {  // x = bf16(x + bf16(acc + bias))
+  bf16* x; int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(x + r * ld + c);
+    const float2 old = __bfloat1622float2(*p);
+    *p = __floats2bfloat162_rn(old.x + round_to<bf16>(v0),
+                               old.y + round_to<bf16>(v1));
+  }
+};
+
+// Where a consumer thread stands: its warpgroup (0 or 1), its warp there
+// and its lane. The first two come through a shuffle so that the compiler
+// sees them as uniform over the warp: wgmma must not sit behind a branch it
+// takes for divergent.
+struct Consumer {
+  int wg, warp, lane;
+  __device__ Consumer() {
+    const int ctid = threadIdx.x - WG;
+    wg = __shfl_sync(0xffffffffu, ctid / WG, 0);
+    warp = __shfl_sync(0xffffffffu, (ctid / 32) % 4, 0);
+    lane = ctid % 32;
+  }
+};
+
+// The consumers' place in the stream of work: t counts the ring's tiles
+// across all four GEMMs. A GEMM's 128-column output chunks are taken two at a
+// time, the first by warpgroup 0 and the second by warpgroup 1, and the
+// pair's k-tiles alternate in the ring, so that both warpgroups run at once
+// whatever the number of chunks (the W2 and proj GEMMs have two); each
+// counts the other's tiles without touching them.
+struct Progress {
+  int t;
+  uint32_t seen;  // bit s: parity of this warpgroup's next phase of full[s]
+};
+
+// One k-tile (32 deep) of a 64 x 128 product: two wgmma. RS: A from the
+// fragments of columns kt * 32 .., else from the swizzled panels at a_base.
+template <bool RS>
+__device__ __forceinline__ void mma_tile(float (&acc)[64],
+                                         const uint32_t (&afrag)[A_REGS],
+                                         uint32_t a_base, int kt,
+                                         uint32_t stage) {
+#pragma unroll
+  for (int j = 0; j < KT / 16; ++j) {
+    const uint64_t db = sw128_desc(stage + j * 16 * 128, HALF_BYTES);
+    if constexpr (RS) {
+      const int kk = kt * (KT / 16) + j;
+      wgmma_m64n128k16(acc, afrag[4 * kk], afrag[4 * kk + 1],
+                       afrag[4 * kk + 2], afrag[4 * kk + 3], db);
+    } else {
+      const int k = kt * KT + 16 * j;
+      wgmma_m64n128k16(
+          acc,
+          sw128_desc(a_base + (k >> 6) * PANEL_BYTES + (k & 63) * 2, 16), db);
+    }
+  }
+}
+
+// Warpgroups 1 and 2: out = A @ W through the epilogue for the tile's 64
+// rows. A: K columns, either this thread's register fragments (RS; K at
+// most MAX_D) or swizzled panels at shared address a_base. A warpgroup
+// computes its chunk of every pair, whole (64 x 128, one wgmma wide), and
+// steps over the other's tiles. bias: the N column biases. The caller fences
+// and synchronises the consumers afterwards.
+template <bool RS, class Epi>
+__device__ void gemm_wgmma(const Consumer& me,
+                           const uint32_t (&afrag)[A_REGS], uint32_t a_base,
+                           int K, int N, const bf16* __restrict__ bias,
+                           const Ring& ring, Progress& at, const Epi& epi) {
+  for (int pair0 = 0; pair0 < N; pair0 += 2 * NC) {
+    // the pair's chunks (one, at the ragged end) share the ring tile by tile
+    const int in_pair = pair0 + NC < N ? 2 : 1;
+    const int first = at.t + me.wg;  // this warpgroup's first tile
+    at.t += K / KT * in_pair;
+    if (me.wg >= in_pair) continue;
+    const int n0 = pair0 + me.wg * NC;
+    // This thread's 16 column pairs of the chunk's bias, asked for before
+    // the k-loop: behind the epilogue's stores the compiler would order
+    // each load after the store before it, one L2 round trip a pair.
+    const int c0 = n0 + (me.lane % 4) * 2;
+    uint32_t bias_raw[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      bias_raw[j] = c0 + 8 * j < N ? __ldg(reinterpret_cast<const uint32_t*>(
+                                         bias + c0 + 8 * j))
+                                   : 0u;
+    // Columns past N are zeros in the stage: no branch stands around a
+    // wgmma.
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    int pending = -1;  // stage whose wgmma group is still in flight
+    // the k-tile of index kt; with RS the loop is unrolled so that the
+    // fragments are indexed by constants
+    auto k_tile = [&](int kt) {
+      const int s = (first + kt * in_pair) % STAGES;
+      mbar_wait(ring.full(me.wg, s), (at.seen >> s) & 1);
+      at.seen ^= 1u << s;
+      // the tile was written by cp.async (generic proxy) and is read by
+      // wgmma (async proxy): the proxy fence stands between the two, on
+      // this side of the barrier that ordered them
+      fence_proxy_async();
+      wgmma_fence();
+      mma_tile<RS>(acc, afrag, a_base, kt, ring.stage(s));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous k-tile's group has completed
+      if (pending >= 0 && me.lane == 0) mbar_arrive(ring.empty(pending));
+      pending = s;
+    };
+    if constexpr (RS) {
+#pragma unroll
+      for (int kt = 0; kt < MAX_D / KT; ++kt)
+        if (kt * KT < K) k_tile(kt);
+    } else {
+      for (int kt = 0; kt * KT < K; ++kt) k_tile(kt);
+    }
+    wgmma_wait<0>();
+    if (me.lane == 0) mbar_arrive(ring.empty(pending));
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+    const int r = me.warp * 16 + me.lane / 4;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + 8 * j;
+      if (c < N) {
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&bias_raw[j]));
+        epi(r, c, acc[4 * j] + b.x, acc[4 * j + 1] + b.y);
+        epi(r + 8, c, acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y);
+      }
+    }
+  }
+}
+
+// afrag = bf16(LN(X)) for the 64 rows as this thread's wgmma A fragments,
+// k-step kk in afrag[4 kk .. 4 kk + 3]. The rows' statistics go through
+// stats[0..63] (mean) and stats[64..127] (1 / sqrt(var + eps)), four
+// consumer threads per row. X is complete when this is called; the GEMM
+// that follows does not write it.
+__device__ void layer_norm16(const Consumer& me, const bf16* X, int ldx,
+                             int d, float* stats,
+                             uint32_t (&afrag)[A_REGS]) {
+  {
+    const int ctid = threadIdx.x - WG;
+    const int r = ctid / 4, q = ctid % 4;  // row, and its quarter of 16-byte
+    float s = 0.f, ss = 0.f;               // vectors q, q + 4, ...
+    for (int c = q * 8; c < d; c += 32) {
+      float v[8];
+      load_f<bf16, 8>(X + r * ldx + c, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += v[e];
+        ss += v[e] * v[e];
+      }
+    }
+#pragma unroll
+    for (int o = 2; o > 0; o /= 2) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    }
+    if (q == 0) {
+      const float mu = s / d;
+      stats[r] = mu;
+      stats[MT16 + r] = 1.f / sqrtf(fmaxf(0.f, ss / d - mu * mu) + 1e-6f);
+    }
+  }
+  consumer_sync();
+  const int r0 = me.warp * 16 + me.lane / 4, r1 = r0 + 8;
+  const float mu0 = stats[r0], inv0 = stats[MT16 + r0];
+  const float mu1 = stats[r1], inv1 = stats[MT16 + r1];
+  const auto norm2 = [](const bf16* p, float mu, float inv) {
+    const float2 v =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    const __nv_bfloat162 y =
+        __floats2bfloat162_rn((v.x - mu) * inv, (v.y - mu) * inv);
+    return *reinterpret_cast<const uint32_t*>(&y);
+  };
+#pragma unroll
+  for (int kk = 0; kk < MAX_D / 16; ++kk) {
+    if (kk * 16 < d) {
+      const int c = kk * 16 + (me.lane % 4) * 2;
+      afrag[4 * kk + 0] = norm2(X + r0 * ldx + c, mu0, inv0);
+      afrag[4 * kk + 1] = norm2(X + r1 * ldx + c, mu1, inv1);
+      afrag[4 * kk + 2] = norm2(X + r0 * ldx + c + 8, mu0, inv0);
+      afrag[4 * kk + 3] = norm2(X + r1 * ldx + c + 8, mu1, inv1);
+    }
+  }
+}
+
+__host__ __device__ constexpr int panels(int cols) { return (cols + 63) / 64; }
+
+// Shared memory of one bf16 block, in bytes: up to 1024 to align the
+// panels, the wide buffer as panels, the ring, X [64][D + PAD], the rows'
+// LayerNorm statistics, 3 * STAGES mbarriers.
+__host__ __device__ constexpr size_t smem_bytes_bf16(int d) {
+  return 1024 + (size_t)panels(4 * d) * PANEL_BYTES +
+         (size_t)STAGES * STAGE_BYTES + (size_t)MT16 * (d + PAD) * 2 +
+         2 * MT16 * sizeof(float) + 3 * STAGES * 8;
+}
+static_assert(smem_bytes_bf16(MAX_D) <= 232448, "a block's shared memory");
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS16, 1)
+fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
+                            const bf16* bqkv, const bf16* wpr,
+                            const bf16* bpr, const bf16* w1, const bf16* b1,
+                            const bf16* w2, const bf16* b2, bf16* out,
+                            int n_img, int n_tok, int d, int imgs_per_tile,
+                            float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzle is a function of the address: panels start on 1024 bytes
+  unsigned char* base =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* Q = base;
+  unsigned char* Ws = Q + panels(4 * d) * PANEL_BYTES;
+  const int ldx = d + PAD;
+  bf16* X = reinterpret_cast<bf16*>(Ws + STAGES * STAGE_BYTES);
+  float* stats = reinterpret_cast<float*>(X + MT16 * ldx);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + 2 * MT16);
+  const Ring ring{smem_u32(Ws), smem_u32(bars), smem_u32(bars + 2 * STAGES)};
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(ring.full(0, s), WG);  // every producer thread
+      mbar_init(ring.full(1, s), WG);
+      mbar_init(ring.empty(s), 4);     // lane 0 of the consuming warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the producer needs few registers; the consumers hold the accumulators
+  // and LN(x): 128 x 40 + 256 x 232 of the SM's 65536
+  if (threadIdx.x < WG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const Weight gemms[4] = {
+        {wqkv, d, 3 * d}, {wpr, d, d}, {w1, d, 4 * d}, {w2, 4 * d, d}};
+    produce_weights(gemms, ring);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int ctid = threadIdx.x - WG;
+  const Consumer me;
+  const int n_heads = d / HD;
+  const int img0 = blockIdx.x * imgs_per_tile;
+  const int imgs = min(imgs_per_tile, n_img - img0);
+  const int rows = imgs * n_tok;
+  const size_t g0 = (size_t)img0 * n_tok * d;
+  const int vpr = d / 8;
+  const uint32_t q_addr = smem_u32(Q);
+  uint32_t afrag[A_REGS];  // LN(x), the A operand of the qkv and W1 GEMMs
+  Progress at{0, 0};
+  // residual tile in; rows past the tile's images are zero
+  for (int v = ctid; v < MT16 * vpr; v += CONSUMERS) {
+    const int r = v / vpr, c = (v % vpr) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows)
+      val = *reinterpret_cast<const uint4*>(tok + g0 + (size_t)r * d + c);
+    *reinterpret_cast<uint4*>(X + r * ldx + c) = val;
+  }
+  consumer_sync();
+
+  // attention half: qkv into Q[:, 0:3D], attention output over Q[:, 0:D]
+  layer_norm16(me, X, ldx, d, stats, afrag);
+  gemm_wgmma<true>(me, afrag, 0, d, 3 * d, bqkv, ring, at, EpiStore16{Q});
+  consumer_sync();
+  for (int p = ctid; p < imgs * n_heads * n_tok; p += CONSUMERS) {
+    const int im = p / (n_heads * n_tok), rem = p % (n_heads * n_tok);
+    const SwTile img{Q, im * n_tok};
+    attend_query<bf16, HD>(img, img, rem % n_tok, rem / n_tok, n_tok, d,
+                           scale);
+  }
+  fence_proxy_async();
+  consumer_sync();
+  gemm_wgmma<false>(me, afrag, q_addr, d, d, bpr, ring, at,
+                    EpiResidual16{X, ldx});
+  consumer_sync();
+
+  // MLP half: GELU hidden into Q[:, 0:4D]
+  layer_norm16(me, X, ldx, d, stats, afrag);
+  gemm_wgmma<true>(me, afrag, 0, d, 4 * d, b1, ring, at, EpiGelu16{Q});
+  fence_proxy_async();
+  consumer_sync();
+  gemm_wgmma<false>(me, afrag, q_addr, 4 * d, d, b2, ring, at,
+                    EpiResidual16{X, ldx});
+  consumer_sync();
+
+  for (int v = ctid; v < rows * vpr; v += CONSUMERS) {
+    const int r = v / vpr, c = (v % vpr) * 8;
+    *reinterpret_cast<uint4*>(out + g0 + (size_t)r * d + c) =
+        *reinterpret_cast<const uint4*>(X + r * ldx + c);
+  }
+}
+
+// ------------------------------------------------------------ launches
+struct Args {
+  const void* p[9];
+  void* out;
+  int n_img, n_tok, d;
+  float scale;
+  cudaStream_t stream;
+};
+
+// T: the element type of the kernel's ten pointers; mt: token rows a block
+template <typename T, class Kernel>
+static int launch(Kernel kern, int threads, size_t smem, int mt,
+                  const Args& a) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int imgs_per_tile = MT / n_tok;
-  const int grid = (n_img + imgs_per_tile - 1) / imgs_per_tile;
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
-      static_cast<const T*>(p[2]), static_cast<const T*>(p[3]),
-      static_cast<const T*>(p[4]), static_cast<const T*>(p[5]),
-      static_cast<const T*>(p[6]), static_cast<const T*>(p[7]),
-      static_cast<const T*>(p[8]), static_cast<T*>(out), n_img, n_tok, d,
-      imgs_per_tile, scale);
+  const int imgs_per_tile = mt / a.n_tok;
+  const int grid = (a.n_img + imgs_per_tile - 1) / imgs_per_tile;
+  kern<<<grid, threads, smem, a.stream>>>(
+      static_cast<const T*>(a.p[0]), static_cast<const T*>(a.p[1]),
+      static_cast<const T*>(a.p[2]), static_cast<const T*>(a.p[3]),
+      static_cast<const T*>(a.p[4]), static_cast<const T*>(a.p[5]),
+      static_cast<const T*>(a.p[6]), static_cast<const T*>(a.p[7]),
+      static_cast<const T*>(a.p[8]), static_cast<T*>(a.out), a.n_img, a.n_tok,
+      a.d, imgs_per_tile, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int MT>
-static int dispatch_hd(int hd, const void* const* p, void* out, int n_img,
-                       int n_tok, int d, float scale, cudaStream_t s) {
+template <int MT>
+static int launch_f32(int hd, const Args& a) {
+  const size_t smem = smem_bytes_f32(MT, a.d);
   switch (hd) {
-    case 16: return launch<T, MT, 16>(p, out, n_img, n_tok, d, scale, s);
-    case 32: return launch<T, MT, 32>(p, out, n_img, n_tok, d, scale, s);
+    case 16:
+      return launch<float>(fused_dit_block_f32_kernel<MT, 16>, NTHREADS, smem,
+                           MT, a);
+    case 32:
+      return launch<float>(fused_dit_block_f32_kernel<MT, 32>, NTHREADS, smem,
+                           MT, a);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+static int launch_bf16(int hd, const Args& a) {
+  const size_t smem = smem_bytes_bf16(a.d);
+  switch (hd) {
+    case 16:
+      return launch<bf16>(fused_dit_block_bf16_kernel<16>, THREADS16, smem,
+                          MT16, a);
+    case 32:
+      return launch<bf16>(fused_dit_block_bf16_kernel<32>, THREADS16, smem,
+                          MT16, a);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -342,26 +943,24 @@ static int dispatch_hd(int hd, const void* const* p, void* out, int n_img,
 }  // namespace cdm
 
 // dtype: 0 = float32, 1 = bfloat16. mt: token rows per block (64 for
-// bfloat16; 16, 32 or 64 for float32), chosen by the caller so that
-// smem_bytes fits in a block (ops/kernels.py mirrors the formula); a size
-// that does not fit fails in cudaFuncSetAttribute and is returned. Returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for an unsupported combination.
+// bfloat16; 16, 32 or 64 for float32), chosen by the caller so that the
+// block's shared memory fits (ops/kernels.py mirrors smem_bytes_f32 and
+// smem_bytes_bf16); a size that does not fit fails in
+// cudaFuncSetAttribute and is returned. Returns cudaGetLastError() after
+// the launch (0 on success), or cudaErrorInvalidValue for an unsupported
+// combination.
 extern "C" int fused_dit_block_launch(
     int dtype, const void* tok, const void* wqkv, const void* bqkv,
     const void* wpr, const void* bpr, const void* w1, const void* b1,
     const void* w2, const void* b2, void* out, int n_img, int n_tok, int d,
     int hd, int mt, float scale, void* stream) {
-  const void* p[9] = {tok, wqkv, bqkv, wpr, bpr, w1, b1, w2, b2};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_tok < 1 || n_tok > mt || d % cdm::KT != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && mt == 64)
-    return cdm::dispatch_hd<cdm::bf16, 64>(hd, p, out, n_img, n_tok, d, scale, s);
-  if (dtype == 0 && mt == 64)
-    return cdm::dispatch_hd<float, 64>(hd, p, out, n_img, n_tok, d, scale, s);
-  if (dtype == 0 && mt == 32)
-    return cdm::dispatch_hd<float, 32>(hd, p, out, n_img, n_tok, d, scale, s);
-  if (dtype == 0 && mt == 16)
-    return cdm::dispatch_hd<float, 16>(hd, p, out, n_img, n_tok, d, scale, s);
+  const cdm::Args a{{tok, wqkv, bqkv, wpr, bpr, w1, b1, w2, b2}, out, n_img,
+                    n_tok, d, scale, static_cast<cudaStream_t>(stream)};
+  if (n_tok < 1 || n_tok > mt || d % cdm::KT != 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && mt == 64) return cdm::launch_bf16(hd, a);
+  if (dtype == 0 && mt == 64) return cdm::launch_f32<64>(hd, a);
+  if (dtype == 0 && mt == 32) return cdm::launch_f32<32>(hd, a);
+  if (dtype == 0 && mt == 16) return cdm::launch_f32<16>(hd, a);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,8 +31,9 @@ short_seq_attention_kernel(const T* qkv, T* out, int n_img, int n_tok,
   const int rem = (int)(p % per_img);
   const int h = rem / n_tok, i = rem % n_tok;
   const int d = n_heads * HD;
-  attend_query<T, HD>(qkv + (size_t)b * n_tok * 3 * d, 3 * d,
-                      out + (size_t)b * n_tok * d, d, i, h, n_tok, d, scale);
+  const RowMajor<const T> in{qkv + (size_t)b * n_tok * 3 * d, 3 * d};
+  const RowMajor<T> dst{out + (size_t)b * n_tok * d, d};
+  attend_query<T, HD>(in, dst, i, h, n_tok, d, scale);
 }
 
 template <typename T, int HD>

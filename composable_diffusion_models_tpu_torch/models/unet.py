@@ -14,10 +14,12 @@ statistics in float32 and return ``dtype``, the output head accumulates
 and returns float32.
 
 The JAX flag ``use_pallas`` is ``fused_gn`` here: ``True`` runs GroupNorm +
-SiLU through the ``groupnorm_silu`` kernel (its plain version on CPU
-tensors), ``False`` through the PyTorch-op composition
-(``groupnorm_silu_split`` with one part), the counterpart of the JAX
-package's XLA branch. ``flash_attn`` keeps its name: ``True`` routes the
+SiLU through the ``groupnorm_silu`` kernel, and the up blocks' two-part
+``concat([x, skip])`` form through the same kernel by way of
+``groupnorm_silu_split`` (their plain versions on CPU tensors); ``False``
+runs both through the PyTorch-op composition
+(``groupnorm_silu_split_ref``), the counterpart of the JAX package's XLA
+branch, and launches no GroupNorm kernel. ``flash_attn`` keeps its name: ``True`` routes the
 cross-attention through the ``flash_attention`` kernel, ``False`` through
 two einsums.
 """
@@ -34,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import flash_attention
-from ..ops.kernels import groupnorm_silu, groupnorm_silu_split
+from ..ops.kernels import (groupnorm_silu, groupnorm_silu_split,
+                           groupnorm_silu_split_ref)
 from .embeddings import time_embedding
 
 
@@ -115,12 +118,14 @@ def gn_silu(p, x, dtype, fused_gn: bool):
     scale, bias = p["scale"].float(), p["bias"].float()
     if isinstance(x, (tuple, list)):
         groups = _gn_groups(sum(part.shape[-1] for part in x))
-        outs = groupnorm_silu_split(x, scale, bias, groups=groups)
+        split = groupnorm_silu_split if fused_gn else groupnorm_silu_split_ref
+        outs = split(x, scale, bias, groups=groups)
         return tuple(o.to(dtype) for o in outs)
     groups = _gn_groups(x.shape[-1])
     if fused_gn:
         return groupnorm_silu(x, scale, bias, groups=groups).to(dtype)
-    return groupnorm_silu_split((x,), scale, bias, groups=groups)[0].to(dtype)
+    return groupnorm_silu_split_ref((x,), scale, bias,
+                                    groups=groups)[0].to(dtype)
 
 
 def res_block(p, x, t_emb, dtype, fused_gn: bool, skip=None) -> torch.Tensor:

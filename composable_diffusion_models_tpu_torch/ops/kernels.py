@@ -5,7 +5,8 @@ in the JAX package).
 
 ``short_seq_attention``, ``fused_dit_block``, ``groupnorm_silu``,
 ``blend_eps`` and ``matmul`` are hand-written CUDA C++ for Hopper
-(``csrc/``), built with nvcc at first use and called through ctypes. Each wrapper validates its inputs, and then:
+(``csrc/``), built with nvcc at first use and called through ctypes. Each
+wrapper validates its inputs, and then:
 
 * for tensors on the CPU, returns its plain version (``*_ref``);
 * for tensors on the CUDA card, launches the kernel on the current stream,
@@ -16,7 +17,11 @@ TPU kernels' rounding sites (composable_diffusion_models_tpu/ops/
 pallas_kernels.py): fp32 scores and softmax, probabilities rounded to the
 input type before the value product, GEMMs accumulated in fp32 with the
 bias added in fp32 and one rounding after it, residual adds in the stream
-type. On the card, compare them with TF32 off
+type. Between two such roundings the bfloat16 kernels evaluate the GELU
+(``fused_dit_block``) and the sigmoid (``groupnorm_silu``) as
+x / (1 + exp(-z)) with the card's approximate exp and reciprocal (~2
+float32 ulps, far inside the bf16 rounding that follows); the float32
+kernels use the plain versions' tanh, exp and division. On the card, compare them with TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, likewise cudnn).
 """
 
@@ -34,11 +39,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 # fused_dit_block's shared-memory layout constants (csrc/fused_dit_block.cu)
 _KT, _NC, _PAD = 32, 128, 8
+_PANEL_BYTES, _STAGES = 64 * 128, 8
 _ATTN_HEAD_DIMS = (8, 16, 32, 64)
 _BLOCK_HEAD_DIMS = (16, 32)
 # groupnorm_silu's launch geometry (csrc/groupnorm_silu.cu)
 _GN_THREADS = 256
 _GN_MAX_SPLITS = 32
+_GN_WAVE = 132 * 4  # blocks an H100 runs at once: 4 to each of its 132 SMs
 
 
 # ------------------------------------------------------------ plain versions
@@ -165,16 +172,25 @@ short_seq_attention.launches = 0
 # ---------------------------------------------------------- fused_dit_block
 def block_smem_bytes(dtype: torch.dtype, rows: int, d: int) -> int:
     """Shared memory of one fused_dit_block block holding ``rows`` token
-    rows: the residual and LayerNorm tiles [rows][D + 8], the 4D-wide
-    buffer [rows][4D + 8] and one weight k-tile [32][128 + 8]."""
-    esize = torch.empty((), dtype=dtype).element_size()
-    return esize * (rows * (d + _PAD) * 2 + rows * (4 * d + _PAD)
-                    + _KT * (_NC + _PAD))
+    rows. float32: the residual and LayerNorm tiles [rows][D + 8], the
+    4D-wide buffer [rows][4D + 8] and one weight k-tile [32][128 + 8].
+    bfloat16 (64 rows): up to 1024 bytes of alignment, the wide buffer as
+    swizzled panels of 64 x 64 elements, a ring of 8 weight stages of
+    32 x 128, the residual [64][D + 8], the rows' LayerNorm statistics and
+    24 mbarriers."""
+    if dtype == torch.bfloat16:
+        if rows != 64:
+            raise ValueError("the bfloat16 kernel holds 64 rows a block")
+        return (1024 + -(-4 * d // 64) * _PANEL_BYTES
+                + _STAGES * _KT * _NC * 2 + rows * (d + _PAD) * 2
+                + 2 * rows * 4 + 3 * _STAGES * 8)
+    return 4 * (rows * (d + _PAD) * 2 + rows * (4 * d + _PAD)
+                + _KT * (_NC + _PAD))
 
 
 def block_rows(dtype: torch.dtype, t: int, d: int) -> int:
     """Token rows a fused_dit_block block holds (whole images of T rows):
-    64 in bfloat16 (the tensor-core tiling); in float32 the largest of 64,
+    64 in bfloat16 (one warpgroup's wgmma M); in float32 the largest of 64,
     32, 16 whose tile fits in shared memory. Raises if no tile holds one
     image."""
     for rows in ((64,) if dtype == torch.bfloat16 else (64, 32, 16)):
@@ -267,34 +283,70 @@ def _gn_affine(ch_sum, ch_sq, n: int, scale, bias, groups: int, eps: float):
 
 def groupnorm_silu_ref(x, scale, bias, groups: int = 8,
                        eps: float = 1e-5) -> torch.Tensor:
-    """Plain version of :func:`groupnorm_silu`."""
+    """Plain version of :func:`groupnorm_silu`: x * a + b in one fused
+    multiply-add (``addcmul``), as the kernel computes it."""
     b, h, w, c = x.shape
     xf = x.reshape(b, h * w, c).float()
     a, bb = _gn_affine(xf.sum(1), (xf * xf).sum(1), h * w * (c // groups),
                        scale, bias, groups, eps)
-    y = xf * a[:, None, :] + bb[:, None, :]
+    y = torch.addcmul(bb[:, None, :], xf, a[:, None, :])
     return (y * torch.sigmoid(y)).to(x.dtype).reshape(b, h, w, c)
 
 
 def gn_splits(dtype: torch.dtype, n: int, hw: int, c: int) -> int:
-    """Row splits of a sample (blocks per sample) for groupnorm_silu: about
-    16 block iterations of rows per block, more splits where the batch
-    alone would leave the card short of ~512 blocks, never more than 32 or
-    than one iteration's rows allow (``chip_smoke.py`` times the widest
-    UNet shape at fixed split counts beside this choice)."""
+    """Row splits of a sample (blocks per sample and part) for
+    groupnorm_silu's two grids: about 16 block iterations of rows per block,
+    more splits where the batch alone would leave SMs without a block,
+    never more than 32 or than one iteration's rows allow. A grid that
+    spills a little over what the card runs at once pays a second, nearly
+    empty wave: it is cut back to one wave (192 samples take 2 splits, not
+    3). ``chip_smoke.py`` times the UNet's shapes at fixed split counts
+    beside this choice. ``c`` is the widest part's channel count."""
     nvc = c * torch.empty((), dtype=dtype).element_size() // 16
     rows_per_iter = _GN_THREADS // nvc
-    want = max(hw // (rows_per_iter * 16), -(-512 // n))
+    want = max(hw // (rows_per_iter * 16), _GN_WAVE // n)
+    if _GN_WAVE < n * want < 1.5 * _GN_WAVE:
+        want = _GN_WAVE // n
     return max(1, min(want, _GN_MAX_SPLITS, hw // rows_per_iter))
 
 
 @functools.cache
 def _gn_fn():
     fn = library("groupnorm_silu").groupnorm_silu_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _gn_launch(name: str, parts, scale, bias, groups: int, eps: float):
+    """Checks the kernel's limits on CUDA ``parts`` ((B, H, W, C_p), one
+    dtype, each contiguous) and launches it once for all of them. Returns
+    the outputs, one per part."""
+    x = parts[0]
+    b, h, w, _ = x.shape
+    vec = 16 // x.element_size()
+    chans = [p.shape[-1] for p in parts]
+    for c in chans:
+        if c % vec or c // vec > _GN_THREADS:
+            raise ValueError(f"{name}: C={c} must be a multiple of {vec} "
+                             f"and at most {vec * _GN_THREADS} for {x.dtype}")
+    outs = [torch.empty_like(p) for p in parts]
+    if x.numel() == 0:
+        return outs
+    hw = h * w
+    splits = gn_splits(x.dtype, b, hw, max(chans))
+    scratch = torch.empty((b, splits, len(parts), groups, 2),
+                          dtype=torch.float32, device=x.device)
+    x1, out1 = (parts[1], outs[1]) if len(parts) == 2 else (x, outs[0])
+    rc = _gn_fn()(_DTYPE_CODE[x.dtype], len(parts), _ptr(x), _ptr(x1),
+                  _ptr(outs[0]), _ptr(out1), chans[0],
+                  chans[1] if len(parts) == 2 else 0, _ptr(scale), _ptr(bias),
+                  _ptr(scratch), b, hw, groups, splits, eps, _stream_ptr(x))
+    if rc:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return outs
 
 
 def groupnorm_silu(x, scale, bias, groups: int = 8,
@@ -317,42 +369,22 @@ def groupnorm_silu(x, scale, bias, groups: int = 8,
             f"strides {x.stride()} for shape {tuple(x.shape)}")
     if x.device.type == "cpu":
         return groupnorm_silu_ref(x, scale, bias, groups, eps)
-    b, h, w, c = x.shape
-    esize = x.element_size()
-    vec = 16 // esize
-    if c % vec or c // vec > _GN_THREADS:
-        raise ValueError(f"groupnorm_silu: C={c} must be a multiple of {vec} "
-                         f"and at most {vec * _GN_THREADS} for {x.dtype}")
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    splits = gn_splits(x.dtype, b, h * w, c)
-    part = torch.empty((b, splits, groups, 2), dtype=torch.float32,
-                       device=x.device)
-    rc = _gn_fn()(_DTYPE_CODE[x.dtype], _ptr(x), _ptr(scale), _ptr(bias),
-                  _ptr(part), _ptr(out), b, h * w, c, groups, splits, eps,
-                  _stream_ptr(x))
-    if rc:
-        raise RuntimeError(f"groupnorm_silu kernel launch failed: CUDA "
-                           f"error {rc}")
-    groupnorm_silu.launches += 1
+    out, = _gn_launch("groupnorm_silu", (x,), scale, bias, groups, eps)
+    if x.numel():
+        groupnorm_silu.launches += 1
     return out
 
 
 groupnorm_silu.launches = 0
 
 
-def groupnorm_silu_split(parts, scale, bias, groups: int = 8,
-                         eps: float = 1e-5):
-    """SiLU(GroupNorm(concat(parts, -1))) without materialising the concat:
-    per-part channel sums meet as (B, C) float32 arrays, the group
-    statistics are combined there (a group may straddle two parts), and
-    each part is normalised on its own. Returns the list of normalised
-    parts, each in its part's dtype.
-
-    Port of the JAX package's ``groupnorm_silu_split``, which is XLA-only
-    there; PyTorch ops on every device here, not a kernel. With one part it
-    is the unfused form of :func:`groupnorm_silu` (``fused_gn=False``)."""
+def groupnorm_silu_split_ref(parts, scale, bias, groups: int = 8,
+                             eps: float = 1e-5):
+    """Plain version of :func:`groupnorm_silu_split`, in PyTorch ops on any
+    device: per-part channel sums meet as (B, C) float32 arrays, the group
+    statistics are combined there, and each part is normalised on its own.
+    Any number of parts, each in its own dtype. With one part it is the
+    unfused form of :func:`groupnorm_silu` (``fused_gn=False``)."""
     b = parts[0].shape[0]
     hw = parts[0].shape[1] * parts[0].shape[2]
     c = sum(p.shape[-1] for p in parts)
@@ -376,6 +408,63 @@ def groupnorm_silu_split(parts, scale, bias, groups: int = 8,
         outs.append((y * torch.sigmoid(y)).to(p.dtype))
         off += cc
     return outs
+
+
+def groupnorm_silu_split(parts, scale, bias, groups: int = 8,
+                         eps: float = 1e-5):
+    """SiLU(GroupNorm(concat(parts, -1))) without materialising the concat:
+    statistics per sample and per group of C / groups channels of the
+    concatenation (a group may straddle two parts), each part normalised
+    into an output of its own. ``parts`` are one or two NHWC tensors
+    (B, H, W, C_p); ``scale`` and ``bias`` (C,) float32 with C the sum of
+    the C_p. Returns the list of normalised parts.
+
+    Port of the JAX package's ``groupnorm_silu_split`` (left to the compiler
+    there). CUDA parts go through the ``groupnorm_silu`` kernel in one
+    launch; CPU parts through :func:`groupnorm_silu_split_ref`.
+
+    Kernel limits: at most two parts, all float32 or all bfloat16, on one
+    device, each contiguous as (B, H, W, C_p) with the same B, H and W;
+    every C_p a multiple of 16 bytes of elements and at most 256 such
+    vectors."""
+    parts = tuple(parts)
+    if not 1 <= len(parts) <= 2:
+        raise ValueError(f"groupnorm_silu_split takes one or two parts, got "
+                         f"{len(parts)}")
+    x = parts[0]
+    if x.dim() != 4:
+        raise ValueError(f"part 0: expected (B, H, W, C), got "
+                         f"{tuple(x.shape)}")
+    for i, p in enumerate(parts):
+        if p.dim() != 4 or p.shape[:3] != x.shape[:3]:
+            raise ValueError(f"part {i}: shape {tuple(p.shape)} does not "
+                             f"match part 0's (B, H, W) = "
+                             f"{tuple(x.shape[:3])}")
+        if p.dtype != x.dtype or p.device != x.device:
+            raise ValueError(f"part {i}: {p.dtype} on {p.device}, expected "
+                             f"{x.dtype} on {x.device}")
+        if not p.is_contiguous():
+            raise ValueError(f"part {i} must be contiguous as (B, H, W, C) "
+                             f"with C fastest; got strides {p.stride()}")
+    c = sum(p.shape[-1] for p in parts)
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"parts: dtype {x.dtype} not supported (float32 or "
+                         f"bfloat16)")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"parts: device {x.device} not supported")
+    if groups < 1 or c % groups:
+        raise ValueError(f"groups={groups} does not divide C={c}")
+    _check("scale", scale, (c,), torch.float32, x.device)
+    _check("bias", bias, (c,), torch.float32, x.device)
+    if x.device.type == "cpu":
+        return groupnorm_silu_split_ref(parts, scale, bias, groups, eps)
+    outs = _gn_launch("groupnorm_silu_split", parts, scale, bias, groups, eps)
+    if x.numel():
+        groupnorm_silu_split.launches += 1
+    return outs
+
+
+groupnorm_silu_split.launches = 0
 
 
 # ---------------------------------------------------------------- blend_eps

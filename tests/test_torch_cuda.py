@@ -6,6 +6,8 @@ is installed:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+from unittest import mock
+
 import pytest
 import torch
 
@@ -34,11 +36,16 @@ def _block_args(b, t, d, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,d,h", [(37, 16, 64, 2), (9, 4, 256, 8),
-                                     (3, 49, 64, 4), (2, 64, 32, 2)])
+                                     (3, 49, 64, 4), (2, 64, 32, 2),
+                                     (2048, 4, 256, 8), (130, 8, 224, 7),
+                                     (7, 3, 96, 3), (1, 1, 32, 1)])
 def test_kernels_match_plain_versions(dtype, b, t, d, h):
     """fp32: summation order only (2e-4 / 1e-5 of scale, the JAX tests'
     bars). bf16: same rounding sites, an accumulation-order flip of one
-    intermediate rounding allowed: 4 bf16 ulps of scale."""
+    intermediate rounding allowed: 4 bf16 ulps of scale. The shapes cover
+    the serving shape, tiles with rows past the last image, D below one
+    64-column panel, N chunks narrower than 128 and every k-tile count of
+    the bf16 kernel's register-resident LayerNorm (D = 32 .. 256)."""
     args = _block_args(b, t, d, dtype, seed=b + t)
     n0 = kernels.fused_dit_block.launches
     got = kernels.fused_dit_block(*args, h)
@@ -97,6 +104,91 @@ def test_groupnorm_silu_matches_plain_version(dtype, shape, groups):
         dtype, ref, 1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [
+    ((16, 64, 64, 64), 8), ((40, 32, 32, 128), 8), ((6, 28, 28, 64), 8),
+    ((3, 7, 7, 24), 4), ((2, 5, 3, 8), 2), ((1, 9, 9, 1024), 8)])
+def test_groupnorm_silu_at_every_split_count(dtype, shape, groups):
+    """The wrapper's own row splits and forced ones (1, 2, 32 blocks a
+    sample): the same bars, and the same bits run to run (no atomics:
+    nothing depends on the order of the blocks)."""
+    g = torch.Generator().manual_seed(sum(shape))
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=g) * 2 + 0.5).to("cuda", dtype)
+    scale = (1 + 0.1 * torch.randn(c, generator=g)).cuda()
+    bias = (0.1 * torch.randn(c, generator=g)).cuda()
+    ref = kernels.groupnorm_silu_ref(x, scale, bias, groups)
+    for splits in (None, 1, 2, 32):
+        pick = kernels.gn_splits if splits is None else (
+            lambda *a, n=splits: n)
+        with mock.patch.object(kernels, "gn_splits", pick):
+            got = kernels.groupnorm_silu(x, scale, bias, groups)
+            again = kernels.groupnorm_silu(x, scale, bias, groups)
+        torch.cuda.synchronize()
+        assert float((got.float() - ref.float()).abs().max()) <= _tol(
+            dtype, ref, 1e-5), splits
+        assert torch.equal(got, again), splits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bhw,chans,groups", [
+    ((8, 32, 32), (256, 128), 8),   # path A's first up block: groups of 48
+    ((8, 64, 64), (128, 64), 8),    # its second: groups of 24
+    ((6, 14, 14), (256, 128), 8), ((6, 28, 28), (128, 64), 8),  # path B's
+    ((3, 5, 7), (16, 8), 4),        # groups of 6: group 2 straddles
+    ((2, 3, 3), (8, 24), 2),        # group 0 covers part 0 and half of 1
+    ((2, 9, 9), (40,), 5),          # one part only
+    ((4, 8, 8), (8, 8), 1)])        # one group over both parts
+def test_groupnorm_silu_split_matches_plain_version(dtype, bhw, chans,
+                                                    groups):
+    """The two-part kernel against its plain version and against the plain
+    single-tensor version on the concatenation, twice for the same bits;
+    one launch counted per call, none for ``groupnorm_silu``."""
+    g = torch.Generator().manual_seed(sum(bhw) + sum(chans))
+    c = sum(chans)
+    parts = [(torch.randn(*bhw, cc, generator=g) * 2 + 0.5).to("cuda", dtype)
+             for cc in chans]
+    scale = (1 + 0.1 * torch.randn(c, generator=g)).cuda()
+    bias = (0.1 * torch.randn(c, generator=g)).cuda()
+    refs = kernels.groupnorm_silu_split_ref(parts, scale, bias, groups)
+    whole = kernels.groupnorm_silu_ref(torch.cat(parts, -1), scale, bias,
+                                       groups)
+    tol = _tol(dtype, whole, 1e-5)
+    n0, s0 = (kernels.groupnorm_silu_split.launches,
+              kernels.groupnorm_silu.launches)
+    got = kernels.groupnorm_silu_split(parts, scale, bias, groups)
+    again = kernels.groupnorm_silu_split(parts, scale, bias, groups)
+    torch.cuda.synchronize()
+    for o, o2, r, p in zip(got, again, refs, parts):
+        assert o.dtype == dtype and o.shape == p.shape
+        assert float((o.float() - r.float()).abs().max()) <= tol
+        assert torch.equal(o, o2)
+    assert float((torch.cat(got, -1).float() - whole.float()).abs()
+                 .max()) <= tol
+    assert kernels.groupnorm_silu_split.launches == n0 + 2
+    assert kernels.groupnorm_silu.launches == s0
+
+
+def test_groupnorm_silu_split_rejects_on_the_card():
+    """CUDA parts outside the kernel's limits raise; they never take the
+    plain version."""
+    scale, bias = torch.ones(24).cuda(), torch.zeros(24).cuda()
+    a, b = (torch.zeros(2, 4, 4, c, device="cuda") for c in (16, 8))
+    with pytest.raises(ValueError, match="one or two"):
+        kernels.groupnorm_silu_split([a, b[..., :4], b[..., 4:]], scale, bias,
+                                     4)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.groupnorm_silu_split(
+            [a, torch.zeros(2, 4, 4, 16, device="cuda")[..., :8]], scale,
+            bias, 4)
+    with pytest.raises(ValueError, match="multiple"):
+        kernels.groupnorm_silu_split(
+            [a, torch.zeros(2, 4, 4, 6, device="cuda")], scale[:22],
+            bias[:22], 2)
+    with pytest.raises(ValueError, match="expected"):
+        kernels.groupnorm_silu_split([a, b.bfloat16()], scale, bias, 4)
+
+
 def test_groupnorm_silu_rejects_on_the_card():
     """A CUDA tensor outside the kernel's limits raises; it never takes
     the plain version."""
@@ -143,25 +235,42 @@ def test_flash_attention_rejects_on_the_card():
 
 
 def test_unet_paths_launch_their_kernels():
-    """Full width, small batch, 2 steps: 8 groupnorm_silu launches per
-    UNet forward, 5 flash_attention launches per cross-attention forward."""
+    """Full width, small batch, 2 steps: 8 groupnorm_silu and 2
+    groupnorm_silu_split launches per UNet forward, 5 flash_attention
+    launches per cross-attention forward; ``fused_gn=False`` launches no
+    GroupNorm kernel."""
     trees = [convert.from_flax(convert.init_params(entry.SHAPES_UNET, seed=i))
              for i in range(entry.N_SHAPES_EXPERTS)]
     x = torch.randn(4, 64, 64, 3, device="cuda")
-    n0 = kernels.groupnorm_silu.launches
-    out = entry.sample_shapes(trees, x, torch.zeros(2, 4, dtype=torch.long),
-                              n_steps=2)
+    labels = torch.zeros(2, 4, dtype=torch.long)
+    n0, s0 = (kernels.groupnorm_silu.launches,
+              kernels.groupnorm_silu_split.launches)
+    out = entry.sample_shapes(trees, x, labels, n_steps=2)
     torch.cuda.synchronize()
     assert kernels.groupnorm_silu.launches - n0 == 8 * 2 * 2
+    assert kernels.groupnorm_silu_split.launches - s0 == 2 * 2 * 2
     assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    n0, s0 = (kernels.groupnorm_silu.launches,
+              kernels.groupnorm_silu_split.launches)
+    off = entry.sample_shapes(trees, x, labels, n_steps=2, fused_gn=False)
+    torch.cuda.synchronize()
+    assert kernels.groupnorm_silu.launches == n0
+    assert kernels.groupnorm_silu_split.launches == s0
+    # bf16 both ways, and the kernels round where the PyTorch ops round; two
+    # steps from t = 1 leave values of ~1/alpha(1) magnitude, so the two are
+    # held together relative to that scale
+    assert bool(torch.isfinite(off).all())
+    assert float((out - off).abs().mean()) <= 0.05 * float(off.abs().mean())
     tree = convert.from_flax(convert.init_params(entry.CFG_UNET, seed=2))
     x = torch.randn(4, 28, 28, 3, device="cuda")
     n0, f0 = kernels.groupnorm_silu.launches, attention.flash_attention.launches
+    s0 = kernels.groupnorm_silu_split.launches
     out = entry.sample_cfg(tree, x, 3, 1, n_steps=2)
     ein = entry.sample_cfg(tree, x, 3, 1, n_steps=2, flash_attn=False)
     torch.cuda.synchronize()
     assert attention.flash_attention.launches - f0 == 5 * 2
     assert kernels.groupnorm_silu.launches - n0 == 8 * 2 * 2
+    assert kernels.groupnorm_silu_split.launches - s0 == 2 * 2 * 2
     assert out.shape == x.shape and bool(torch.isfinite(out).all())
     # two steps from t = 1 leave values of ~1/alpha(1) magnitude; both
     # branches are float32, so they differ by summation order only

@@ -240,6 +240,86 @@ def test_groupnorm_silu_split_matches_jax(dtype):
         assert float(np.abs(g - w).max()) <= tol
 
 
+@pytest.mark.parametrize("hw,chans,groups", [
+    ((4, 4), (16, 8), 4),      # 4 groups of 6: group 2 straddles the parts
+    ((5, 3), (8, 24), 2),      # 2 groups of 16: group 0 spans part 0 and on
+    ((6, 6), (40,), 5),        # one part
+    ((3, 3), (12, 12, 24), 8),  # three parts, groups of 6 inside each
+    ((2, 7), (48, 24), 8),     # the up blocks' 2 : 1 ratio, groups of 9
+    ((4, 2), (8, 8), 1)])      # one group over everything
+def test_groupnorm_silu_split_ref_matches_jax(hw, chans, groups):
+    """The plain version against the JAX ``groupnorm_silu_split`` and against
+    the plain single-tensor version on the concatenation, float32: summation
+    order only (1e-5)."""
+    rng = np.random.default_rng(sum(chans) + groups)
+    a, scale, bias = _gn_inputs(rng, (2, *hw, sum(chans)))
+    edges = np.cumsum((0,) + chans)
+    parts = [np.ascontiguousarray(a[..., lo:hi])
+             for lo, hi in zip(edges[:-1], edges[1:])]
+    ref = pk.groupnorm_silu_split([jnp.asarray(p) for p in parts],
+                                  jnp.asarray(scale), jnp.asarray(bias),
+                                  groups=groups)
+    tparts = [torch.from_numpy(p) for p in parts]
+    got = kernels.groupnorm_silu_split_ref(
+        tparts, torch.from_numpy(scale), torch.from_numpy(bias), groups=groups)
+    whole = kernels.groupnorm_silu_ref(
+        torch.from_numpy(a), torch.from_numpy(scale), torch.from_numpy(bias),
+        groups=groups).numpy()
+    assert len(got) == len(parts)
+    for g, r, lo, hi in zip(got, ref, edges[:-1], edges[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(g.numpy(), whole[..., lo:hi], rtol=0,
+                                   atol=1e-5)
+    if len(parts) <= 2:  # the wrapper takes what the kernel takes
+        wrapped = kernels.groupnorm_silu_split(
+            tparts, torch.from_numpy(scale), torch.from_numpy(bias),
+            groups=groups)
+        for w, g in zip(wrapped, got):
+            np.testing.assert_array_equal(w.numpy(), g.numpy())
+
+
+def test_groupnorm_silu_split_ref_keeps_each_parts_dtype():
+    parts = [torch.randn(2, 3, 3, 8), torch.randn(2, 3, 3, 16).bfloat16()]
+    outs = kernels.groupnorm_silu_split_ref(parts, torch.ones(24),
+                                            torch.zeros(24), groups=4)
+    assert [o.dtype for o in outs] == [torch.float32, torch.bfloat16]
+    assert [o.shape for o in outs] == [p.shape for p in parts]
+
+
+@pytest.mark.parametrize("bad", ["three_parts", "no_parts", "strided_part",
+                                 "batch", "hw", "groups", "mixed_dtype",
+                                 "rank", "dtype", "scale_shape"])
+def test_groupnorm_silu_split_rejects(bad):
+    """The wrapper raises on what the kernel does not take, on the CPU as on
+    the card; it never hands such input to the plain version."""
+    parts = [torch.zeros(2, 4, 4, 16), torch.zeros(2, 4, 4, 8)]
+    scale, bias, groups = torch.ones(24), torch.zeros(24), 4
+    if bad == "three_parts":
+        parts.append(torch.zeros(2, 4, 4, 8))
+        scale, bias = torch.ones(32), torch.zeros(32)
+    elif bad == "no_parts":
+        parts = []
+    elif bad == "strided_part":  # a channel slice of a wider tensor
+        parts[1] = torch.zeros(2, 4, 4, 16)[..., :8]
+    elif bad == "batch":
+        parts[1] = torch.zeros(3, 4, 4, 8)
+    elif bad == "hw":
+        parts[1] = torch.zeros(2, 4, 2, 8)
+    elif bad == "groups":
+        groups = 5
+    elif bad == "mixed_dtype":
+        parts[1] = parts[1].bfloat16()
+    elif bad == "rank":
+        parts = [torch.zeros(2, 16, 16), torch.zeros(2, 16, 8)]
+    elif bad == "dtype":
+        parts = [p.half() for p in parts]
+    else:
+        scale = torch.ones(16)
+    with pytest.raises(ValueError):
+        kernels.groupnorm_silu_split(parts, scale, bias, groups)
+
+
 @pytest.mark.parametrize("bad", ["nchw_view", "rank", "dtype", "groups",
                                  "scale_shape", "scale_dtype"])
 def test_groupnorm_silu_rejects(bad):
@@ -263,11 +343,56 @@ def test_groupnorm_silu_rejects(bad):
 
 @pytest.mark.parametrize("dtype,n,hw,c,splits", [
     (torch.bfloat16, 128, 4096, 64, 8), (torch.bfloat16, 128, 1024, 128, 4),
-    (torch.bfloat16, 192, 784, 64, 3), (torch.float32, 128, 4096, 64, 16),
-    (torch.float32, 192, 49, 256, 3), (torch.bfloat16, 3, 49, 24, 1),
-    (torch.float32, 1, 4096, 1024, 32)])
+    (torch.bfloat16, 192, 784, 64, 2), (torch.float32, 128, 4096, 64, 16),
+    (torch.float32, 192, 49, 256, 2), (torch.bfloat16, 3, 49, 24, 1),
+    (torch.float32, 1, 4096, 1024, 32),
+    # the two-part launches, by their widest part: paths A (bf16) and B
+    (torch.bfloat16, 128, 1024, 256, 8), (torch.bfloat16, 128, 4096, 128, 16),
+    (torch.float32, 192, 196, 256, 2), (torch.float32, 192, 784, 128, 6),
+    # 192 x 3 blocks would spill over one wave of 528: cut back to 2
+    (torch.float32, 192, 784, 64, 2), (torch.float32, 600, 784, 64, 3),
+    (torch.float32, 600, 49, 256, 1),
+    (torch.float32, 100, 784, 64, 5), (torch.float32, 128, 1536, 64, 4)])
 def test_gn_splits(dtype, n, hw, c, splits):
     assert kernels.gn_splits(dtype, n, hw, c) == splits
+    # a split is never thinner than the rows of one block iteration
+    rows_per_iter = 256 // (c * (2 if dtype == torch.bfloat16 else 4) // 16)
+    assert 1 <= splits <= max(1, min(32, hw // rows_per_iter))
+    # never a grid between one wave and one and a half
+    assert not 528 < n * splits < 792 or splits == 1
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("t", [1, 4, 16, 49, 64])
+def test_block_smem_bytes_fit_at_every_supported_shape(t, d):
+    """bfloat16: 64 rows at every D the kernel takes (a multiple of 32 up to
+    256). float32: the rows block_rows picks fit; where no tile holds one
+    image it raises."""
+    assert kernels.block_rows(torch.bfloat16, t, d) == 64
+    nbytes = kernels.block_smem_bytes(torch.bfloat16, 64, d)
+    assert nbytes <= 232448
+    # the ring, the alignment slack, the statistics and the barriers are
+    # always there, beside 64 rows of 4D + D elements
+    assert nbytes >= 8 * 32 * 128 * 2 + 1024 + 512 + 192 + 64 * 5 * d * 2
+    try:
+        rows = kernels.block_rows(torch.float32, t, d)
+    except ValueError:
+        assert all(t > r or kernels.block_smem_bytes(torch.float32, r, d)
+                   > 232448 for r in (64, 32, 16))
+    else:
+        assert t <= rows
+        assert kernels.block_smem_bytes(torch.float32, rows, d) <= 232448
+
+
+def test_block_smem_bytes_bf16_is_the_kernels_layout():
+    """At D = 256: 1024 to align, 16 panels of 8 KB, 8 stages of 8 KB, the
+    residual [64][264], 2 x 64 float32 statistics and 24 mbarriers."""
+    assert kernels.block_smem_bytes(torch.bfloat16, 64, 256) == (
+        1024 + 16 * 8192 + 8 * 8192 + 64 * 264 * 2 + 512 + 192)
+    with pytest.raises(ValueError, match="64 rows"):
+        kernels.block_smem_bytes(torch.bfloat16, 32, 256)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.block_rows(torch.bfloat16, 4, 288)
 
 
 # ---------------------------------------------------------- flash_attention

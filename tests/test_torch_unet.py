@@ -243,6 +243,38 @@ def test_unet_fused_gn_flag():
     np.testing.assert_allclose(b, ref, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("fused_gn,single,split,plain", [
+    (True, 8, 2, 0), (False, 0, 0, 10)])
+def test_unet_fused_gn_routes_every_groupnorm(monkeypatch, fused_gn, single,
+                                              split, plain):
+    """``fused_gn=True`` sends the 8 single-tensor GroupNorms of a 3-level
+    UNet through ``groupnorm_silu`` and the up blocks' two ``[x, skip]``
+    pairs through ``groupnorm_silu_split``; ``False`` sends all 10 through
+    the PyTorch-op composition and touches neither wrapper."""
+    from composable_diffusion_models_tpu_torch.models import unet as tunet
+    calls = {"single": 0, "split": 0, "plain": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(tunet, "groupnorm_silu",
+                        counted("single", tunet.groupnorm_silu))
+    monkeypatch.setattr(tunet, "groupnorm_silu_split",
+                        counted("split", tunet.groupnorm_silu_split))
+    monkeypatch.setattr(tunet, "groupnorm_silu_split_ref",
+                        counted("plain", tunet.groupnorm_silu_split_ref))
+    cfg = {**SMALL, "num_classes": (3,), "channel_mults": (1, 2, 4)}
+    tree = _torch_tree(convert.init_params(UNet(**cfg), seed=8))
+    x = torch.from_numpy(_images(13))
+    out = UNet(**cfg, fused_gn=fused_gn).apply(
+        tree, x, torch.tensor([0.2, 0.7]), torch.tensor([0, 2]))
+    assert bool(torch.isfinite(out).all())
+    assert calls == {"single": single, "split": split, "plain": plain}
+
+
 @pytest.mark.parametrize("kw", [dict(num_classes=(3,)),
                                 {**CROSS, "flash_attn": True}],
                          ids=["class", "cross_flash"])
