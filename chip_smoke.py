@@ -10,8 +10,12 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     csrc`` with nvcc (ptxas register/spill report printed);
  3. holds each of the six kernels against its plain PyTorch version on the
     card, in float32 and bfloat16, at the serving shapes and at ragged
-    ones, and times kernel, plain version and, where one PyTorch call (or
-    two, for GroupNorm + SiLU) computes the same function, that call;
+    ones, and times kernel (by events and on the device from a trace),
+    plain version and, where one PyTorch call (or two, for GroupNorm +
+    SiLU) computes the same function, that call; ``matmul`` and
+    ``flash_attention`` print the route their helper picks at every shape,
+    are held at each route's edges (both operand majors) and are timed on
+    every route over the depth or keys where the limits sit;
     ``groupnorm_silu`` at forced row-split counts beside the wrapper's
     choice, and its two-part form ``groupnorm_silu_split`` at the UNet
     paths' shapes and at ragged ones (groups that straddle the parts, one
@@ -99,11 +103,26 @@ SATURATED = (-100.0, -88.0, -80.0, -12.0, -10.0, -4.0, 4.0, 10.0, 12.0, 80.0,
 # flash_attention: (B, H, Nq, Nk, D); path B's 5 sites per forward (3
 # distinct shapes), then the shapes of the JAX package's own kernel tests
 FA_MAIN = (3 * B_BATCH, 4, 784, 2, 16)
+# shapes, then each route's edges: Nk at the short route's limit (4) and
+# one past it, rows of 64 and 128 bytes, more heads than its block holds,
+# Nk * D at the tensor cores' limit (2048) and one short of it, long
+# contexts with q split (D = 32, 128) and exact (D = 16, 64) and Nq no
+# multiple of 64, then the long contexts that are timed
 FA_SHAPES = [FA_MAIN, (3 * B_BATCH, 4, 196, 2, 32), (3 * B_BATCH, 4, 49, 2, 64),
              (2, 2, 128, 128, 64), (2, 2, 256, 256, 32), (1, 2, 128, 2, 32),
              (1, 1, 128, 384, 32), (1, 2, 128, 200, 32), (3, 2, 77, 33, 128),
-             (4, 8, 4096, 4096, 64)]
-FA_TIMED = FA_SHAPES[:3] + FA_SHAPES[-1:]
+             (3, 4, 100, 4, 16), (3, 4, 100, 5, 16), (2, 2, 70, 4, 64),
+             (2, 3, 130, 3, 32), (1, 128, 9, 2, 16), (1, 129, 9, 2, 16),
+             (2, 2, 70, 31, 64),
+             (2, 2, 70, 32, 64), (2, 3, 65, 127, 16), (2, 3, 65, 128, 16),
+             (1, 2, 200, 300, 32), (1, 2, 200, 300, 128),
+             (2, 2, 130, 1000, 64),
+             (4, 8, 4096, 4096, 64), (4, 8, 4096, 4096, 128)]
+FA_TIMED = FA_SHAPES[:3] + FA_SHAPES[-2:]
+# keys timed on each route that can take them, at path B's widest site
+# and at a long-query bf16 shape (B, H, Nq, D)
+FA_ROUTE_NK = (2, 4, 8, 16, 32, 64, 128, 256)
+FA_ROUTE_LONG_Q = (4, 8, 1024, 64)
 # latent path: the shapes_latent preset (10000 images of 64 x 64 x 1, 512
 # latents of 2 dims, 1000 steps) and the mnist_latent2d preset for em (8192
 # images of 28 x 28 x 1, batch 64)
@@ -123,8 +142,15 @@ MM_SHAPES = [(LATENT_N, LATENT_SIZE ** 2, 2), (EM_N, EM_SIZE ** 2, 2),
              MM_MAIN, (EM_BATCH, 2, EM_SIZE ** 2), (8192, 12288, 64),
              (LATENT_BATCH, 64, 12288), (2048, 2048, 2048), (64, 32, 48),
              (130, 784, 2), (1, 1, 1), (7, 129, 3), (33, 5, 65),
-             (257, 1000, 130)]
+             (257, 1000, 130),
+             # each route's edges: K at 1, 2, the small-K limit (8) and one
+             # past it; M, N and K no tile multiples (16-byte rows, and
+             # not: the wgmma route and the tiles route in bf16)
+             (512, 1, 4096), (333, 8, 1000), (512, 9, 4096),
+             (512, 16, 4096), (136, 1000, 264), (1000, 1000, 1000)]
 MM_TIMED = MM_SHAPES[:7]
+# depths of the decode timed on each route that can take them
+MM_ROUTE_K = (2, 4, 8, 9, 16)
 
 
 def log(msg: str) -> None:
@@ -176,14 +202,14 @@ def device_ms(fn, iters: int = 10, match: str = "cdm::") -> float:
     for a library call), read from a trace: a launch of a few microseconds
     is timed by ``time_ms`` at the rate the host can launch it, not at what
     the card needs. A trace now and then comes back without its device
-    records: it is taken again, and the run fails after five such."""
+    records: it is taken again, and the run fails after ten such."""
     fn()
-    for _ in range(5):
+    for attempt in range(10):
         records = device_records(lambda: [fn() for _ in range(iters)], match)
         if records and len(records) % iters == 0:
             return sum(us for _, us in records) / 1e3 / iters
-        time.sleep(0.2)
-    fail(f"five traces in a row kept no whole set of device records "
+        time.sleep(0.2 * (attempt + 1))
+    fail(f"ten traces in a row kept no whole set of device records "
          f"matching {match!r}")
 
 
@@ -194,6 +220,49 @@ def split_sweep(kernels, call) -> str:
     for splits in GN_SPLIT_COUNTS:
         with mock.patch.object(kernels, "gn_splits", lambda *a, n=splits: n):
             out.append(f"{splits}: {device_ms(call):.4f}")
+    return ", ".join(out)
+
+
+def fa_strides(*tensors) -> tuple:
+    """The 12 (batch, head, row) strides that flash_route reads."""
+    return sum((tuple(t.stride()[:3]) for t in tensors), ())
+
+
+def flash_route_sweep(attention, dtype, bhqd, gen) -> str:
+    """Device ms of flash_attention on (B, N, H, D) views of ``bhqd`` at
+    each of FA_ROUTE_NK keys, on every route that can take them, forced
+    past ``flash_route``: where the short route's limit should sit."""
+    b, h, nq, d = bhqd
+    routes = ("short", "tiles") + (("wgmma",) if dtype == torch.bfloat16
+                                   else ())
+    out = []
+    for nk in FA_ROUTE_NK:
+        q, k, v = (torch.randn(b, n, h, d, generator=gen).to("cuda", dtype)
+                   .transpose(1, 2) for n in (nq, nk, nk))
+        for r in routes:
+            with mock.patch.object(attention, "flash_route",
+                                   lambda *a, r=r: r):
+                dev = device_ms(lambda: attention.flash_attention(q, k, v))
+            out.append(f"Nk {nk} {r} {dev:.4f}")
+    return ", ".join(out)
+
+
+def matmul_route_sweep(kernels, dtype, m, n, gen) -> str:
+    """Device ms of matmul (M, K) x (K, N) at each of MM_ROUTE_K depths, on
+    every route that can take them, forced past ``matmul_route``: where
+    the small-K route's limit should sit."""
+    out = []
+    for k in MM_ROUTE_K:
+        a = torch.randn(m, k, generator=gen).to("cuda", dtype)
+        b = torch.randn(k, n, generator=gen).to("cuda", dtype)
+        # the tensor cores take bf16 rows of a multiple of 8 elements
+        routes = (("small_k",) if k <= 8 else ()) + ("tiles",) + (
+            ("wgmma",) if dtype == torch.bfloat16 and k % 8 == 0 else ())
+        for r in routes:
+            with mock.patch.object(kernels, "matmul_route",
+                                   lambda *a, r=r, **kw: r):
+                dev = device_ms(lambda: kernels.matmul(a, b))
+            out.append(f"K {k} {r} {dev:.4f}")
     return ", ".join(out)
 
 
@@ -295,14 +364,18 @@ def check_kernels(kernels):
             q, k, v = (qkv.reshape(b, t, 3, h, hd)[:, :, i].transpose(1, 2)
                        .contiguous() for i in range(3))
             ms = time_ms(lambda: kernels.short_seq_attention(qkv, h))
+            dev = device_ms(lambda: kernels.short_seq_attention(qkv, h))
             plain = time_ms(lambda: kernels.short_seq_attention_ref(qkv, h))
             lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            lib_dev = device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v), match="")
             flops = 4 * b * t * t * d
             nbytes = es * (b * t * 3 * d + b * t * d)
             bms, by = bound_ms(flops, nbytes, dtype)
-            log(f"  short_seq_attention {str(dtype)[6:]}: kernel {ms:.4f} ms, "
-                f"plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} "
-                f"ms ({by}; {nbytes / 1e6:.2f} MB)")
+            log(f"  short_seq_attention {str(dtype)[6:]}: kernel {ms:.4f} ms "
+                f"({dev:.4f} ms on the device in a trace), plain "
+                f"{plain:.4f} ms, SDPA {lib:.4f} ms ({lib_dev:.4f} ms on the "
+                f"device), bound {bms:.4f} ms ({by}; {nbytes / 1e6:.2f} MB)")
             rows[("short_seq_attention", dtype)] = dict(
                 max_abs_err=err_a, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib)
@@ -445,26 +518,53 @@ def check_unet_kernels(kernels, attention):
                                               v.contiguous())
             err = max(err, max_err(got_c, ref))
             tol = tolerance(dtype, ref, 1e-5)
-            log(f"flash_attention {name} B={b} H={h} Nq={nq} Nk={nk} D={d}: "
-                f"max_abs_err={err:.3e} tol={tol:.3e} (strided and "
-                f"contiguous)")
+            route = attention.flash_route(dtype, h, nk, d,
+                                          fa_strides(q, k, v, got))
+            log(f"flash_attention {name} B={b} H={h} Nq={nq} Nk={nk} D={d} "
+                f"({route} route): max_abs_err={err:.3e} tol={tol:.3e} "
+                f"(strided and contiguous)")
             if not err <= tol:
                 fail("flash_attention disagrees with its plain version")
+            if (b, h, nq, nk, d) in FA_SHAPES[:3]:
+                # path B's sites: the short route keeps the tiles route's
+                # arithmetic, so its outputs are the same bits, whichever
+                # route the helper picks there
+                outs = []
+                for r in ("short", "tiles"):
+                    with mock.patch.object(attention, "flash_route",
+                                           lambda *a, r=r: r):
+                        outs.append(attention.flash_attention(q, k, v))
+                same = torch.equal(*outs)
+                log(f"  short route vs tiles route: the same bits {same}")
+                if not same:
+                    fail("the short route does not give the tiles route's "
+                         "bits")
             if (b, h, nq, nk, d) not in FA_TIMED:
                 continue
             iters = 3 if nq * nk > 1e6 else 20
             ms = time_ms(lambda: attention.flash_attention(q, k, v), iters, 1)
+            dev = device_ms(lambda: attention.flash_attention(q, k, v), iters)
             plain = time_ms(lambda: attention.flash_attention_ref(q, k, v),
                             iters, 1)
             lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
                           iters, 1)
+            lib_dev = device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v), iters,
+                match="")
             flops = 4 * b * h * nq * nk * d
             nbytes = es * b * h * d * (2 * nq + 2 * nk)
             bms, by = bound_ms(flops, nbytes, dtype)
-            log(f"  flash_attention {name} Nq={nq} Nk={nk} D={d}: kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
-                f"bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
-                f"{nbytes / 1e6:.2f} MB)")
+            log(f"  flash_attention {name} Nq={nq} Nk={nk} D={d} ({route} "
+                f"route): kernel {ms:.4f} ms ({dev:.4f} ms on the device in a "
+                f"trace), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
+                f"({lib_dev:.4f} ms on the device), bound {bms:.4f} ms ({by}; "
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            if (b, h, nq, nk, d) == FA_MAIN:
+                for bhqd in ((b, h, nq, d),) + (
+                        (FA_ROUTE_LONG_Q,) if dtype == torch.bfloat16 else ()):
+                    log(f"  flash_attention {name} (B, H, Nq, D) = {bhqd}, "
+                        f"device ms by route and Nk: "
+                        + flash_route_sweep(attention, dtype, bhqd, gen))
             if (b, h, nq, nk, d) == FA_MAIN:
                 rows[("flash_attention", dtype)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
@@ -525,15 +625,21 @@ def check_latent_kernels(kernels, compose):
             torch.cuda.synchronize()
             ref = kernels.matmul_ref(a, b)
             err = max_err(got, ref)
-            # either operand as a transposed view, read through strides
-            err = max(err, max_err(
-                kernels.matmul(a, b.t().contiguous().t()), ref), max_err(
-                kernels.matmul(a.t().contiguous().t(), b), ref))
+            # either operand and both as transposed views, read through
+            # their strides
+            a_t, b_t = a.t().contiguous().t(), b.t().contiguous().t()
+            err = max(err, max_err(kernels.matmul(a, b_t), ref),
+                      max_err(kernels.matmul(a_t, b), ref),
+                      max_err(kernels.matmul(a_t, b_t), ref))
             # float32: two sums of K products in different orders, each
             # off by ~2^-24 sqrt(K) of the output scale: 2 * 2^-23 sqrt(K)
             tol = tolerance(dtype, ref, 2 * 2.0 ** -23 * max(1, k) ** 0.5)
-            log(f"matmul {name} M={m} K={k} N={n}: max_abs_err={err:.3e} "
-                f"tol={tol:.3e} (contiguous and transposed operands)")
+            routes = [kernels.matmul_route(dtype, m, k, n, x.stride(),
+                                           y.stride())
+                      for x, y in ((a, b), (a, b_t), (a_t, b), (a_t, b_t))]
+            log(f"matmul {name} M={m} K={k} N={n} (routes {routes}: "
+                f"contiguous, b, a, both transposed): max_abs_err={err:.3e} "
+                f"tol={tol:.3e}")
             if not err <= tol:
                 fail("matmul disagrees with its plain version")
             if (m, k, n) not in MM_TIMED:
@@ -554,6 +660,9 @@ def check_latent_kernels(kernels, compose):
                 f"{bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
                 f"{nbytes / 1e6:.2f} MB)")
             if (m, k, n) == MM_MAIN:
+                log(f"  matmul {name} decode (M, N) = {(m, n)}, device ms by "
+                    f"route and K: " + matmul_route_sweep(kernels, dtype, m, n,
+                                                          gen))
                 rows[("matmul", dtype)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                     bound_by=by, library_ms=lib)

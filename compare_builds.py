@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Holds two checkouts' kernels to each other on one CUDA card.
+
+    python3 compare_builds.py run TAG      # from the directory that holds a
+                                           # checkout's package
+    python3 compare_builds.py compare TAG_A TAG_B [TAG ...]
+
+``run`` builds the package found in the working directory, feeds its
+``fused_dit_block`` (the DiT serving shape, both dtypes) and its
+``flash_attention`` (path B's three sites, strided and contiguous, both
+dtypes) the same seeded inputs as every other run, and saves a SHA-256 of
+each output's bytes and three device times a call (``chip_smoke.device_ms``)
+to ``builds_TAG.pt`` in the git-ignored build directory of the package
+beside this script. ``compare`` prints, for
+each output, whether TAG_A and TAG_B give the same bits (and whether runs
+sharing TAG_A's or TAG_B's prefix agree among themselves), then the median
+device time of every run, in the order given: run parent, change, change,
+parent, one process each, and compare them in that order.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+import chip_smoke as cs  # noqa: E402
+
+OUT = os.path.join(HERE, "composable_diffusion_models_tpu_torch", "build")
+FA_SITES = [cs.FA_MAIN, (3 * cs.B_BATCH, 4, 196, 2, 32),
+            (3 * cs.B_BATCH, 4, 49, 2, 64)]
+
+
+def device_ms(fn) -> float:
+    """``chip_smoke.device_ms``, or NaN where the trace keeps no device
+    records (the first traces of a process now and then come back empty):
+    the bits are compared all the same."""
+    try:
+        return cs.device_ms(fn)
+    except SystemExit:
+        return float("nan")
+
+
+def run(tag: str) -> None:
+    sys.path.insert(0, os.getcwd())
+    from composable_diffusion_models_tpu_torch.ops import attention, kernels
+    print(tag, os.path.dirname(kernels.__file__), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outs, times = {}, {}
+    gen = torch.Generator().manual_seed(0)
+    b, t, d, h = cs.MAIN
+    for dtype in (torch.bfloat16, torch.float32):
+        args = cs.block_inputs(b, t, d, dtype, gen)
+        key = f"fused_dit_block {str(dtype)[6:]}"
+        outs[key] = kernels.fused_dit_block(*args, h)
+        times[key] = [device_ms(lambda: kernels.fused_dit_block(*args, h))
+                      for _ in range(3)]
+    gen = torch.Generator().manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, nq, nk, d in FA_SITES:
+            q, k, v = (torch.randn(b, n, h, d, generator=gen).to("cuda", dtype)
+                       .transpose(1, 2) for n in (nq, nk, nk))
+            key = f"flash_attention {str(dtype)[6:]} Nq={nq} D={d}"
+            outs[key] = attention.flash_attention(q, k, v)
+            outs[key + " contiguous"] = attention.flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous())
+            times[key] = [device_ms(
+                lambda: attention.flash_attention(q, k, v)) for _ in range(3)]
+    digests = {key: hashlib.sha256(
+        o.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()
+        for key, o in outs.items()}
+    os.makedirs(OUT, exist_ok=True)
+    torch.save({"digests": digests, "times": times},
+               os.path.join(OUT, f"builds_{tag}.pt"))
+
+
+def compare(tags: list) -> None:
+    runs = {tag: torch.load(os.path.join(OUT, f"builds_{tag}.pt"))
+            for tag in tags}
+    a, b = runs[tags[0]]["digests"], runs[tags[1]]["digests"]
+    for key in a:
+        same = [runs[x]["digests"][key] for x in tags]
+        print(f"{key}: {tags[0]} and {tags[1]} the same bits "
+              f"{a[key] == b[key]} (every run: {len(set(same))} distinct "
+              f"outputs)")
+    for key in runs[tags[0]]["times"]:
+        print(f"{key} device ms: " + " / ".join(
+            f"{x} {sorted(runs[x]['times'][key])[1]:.5f}" for x in tags))
+
+
+if __name__ == "__main__":
+    if not torch.cuda.is_available():
+        print("compare_builds: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    if sys.argv[1] == "run":
+        run(sys.argv[2])
+    else:
+        compare(sys.argv[2:])

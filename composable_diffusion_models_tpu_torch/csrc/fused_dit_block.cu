@@ -90,6 +90,7 @@
 // exp(-2u) is 0 and the result is x; for x < ~-10 the divisor passes 2^126,
 // where __fdividef returns 0 and the tanh form x * 0.5 (1 - 1) does too.
 #include "attention.cuh"
+#include "hopper.cuh"
 
 namespace cdm {
 
@@ -314,168 +315,9 @@ struct SwTile {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spins until the barrier's phase of the given parity has completed. A wait
-// of more than two seconds is a protocol fault: the block traps, and the
-// launch ends in an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  unsigned long long start = 0;
-  for (uint32_t spins = 0;; ++spins) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((spins & 1023u) == 1023u) {
-      unsigned long long now;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-      if (start == 0) start = now;
-      if (now - start > 2000000000ull) __trap();
-    }
-  }
-}
-
-// 16 bytes global -> shared; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Makes this thread's earlier shared-memory writes visible to wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // Barrier over the 256 consumer threads only (the producer runs ahead)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1): start
-// address; stride byte offset 1024, from one group of 8 rows of 128 bytes to
-// the next; leading byte offset lbo, for an N-major operand wider than 64
-// columns the stride from one 64-column panel to the next (not read for a
-// K-major operand).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// acc (64 x 128, fp32) += A (64 x 16, K-major) @ B (16 x 128, N-major), both
-// from shared memory: scale-d 1 (accumulate), scale-a 1, scale-b 1, A not
-// transposed, B transposed (N-major).
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      " %64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// The same with A (64 x 16) from registers: a0..a3 are this thread's
-// fragment, rows lane / 4 and + 8 of its warp's 16, columns 2 * (lane % 4)
-// + {0, 1} and + 8.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint32_t a0,
-                                                 uint32_t a1, uint32_t a2,
-                                                 uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
 // The ring: stage s is STAGE_BYTES at stage0 + s * STAGE_BYTES. Producer
@@ -550,9 +392,7 @@ __device__ void produce_weights(const Weight (&gemms)[4], const Ring& ring) {
     }
     // one arrival on the tile's "full" barrier when this thread's copies
     // of it have landed
-    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                     ring.full(at.w, s))
-                 : "memory");
+    cp_async_arrive_noinc(ring.full(at.w, s));
     at.next(gemms);
   }
   cp_async_wait<0>();
@@ -637,13 +477,14 @@ __device__ __forceinline__ void mma_tile(float (&acc)[64],
     const uint64_t db = sw128_desc(stage + j * 16 * 128, HALF_BYTES);
     if constexpr (RS) {
       const int kk = kt * (KT / 16) + j;
-      wgmma_m64n128k16(acc, afrag[4 * kk], afrag[4 * kk + 1],
-                       afrag[4 * kk + 2], afrag[4 * kk + 3], db);
+      Wgmma<128>::rs<1>(acc, afrag[4 * kk], afrag[4 * kk + 1],
+                        afrag[4 * kk + 2], afrag[4 * kk + 3], db, 1);
     } else {
       const int k = kt * KT + 16 * j;
-      wgmma_m64n128k16(
+      Wgmma<128>::ss<0, 1>(
           acc,
-          sw128_desc(a_base + (k >> 6) * PANEL_BYTES + (k & 63) * 2, 16), db);
+          sw128_desc(a_base + (k >> 6) * PANEL_BYTES + (k & 63) * 2, 16), db,
+          1);
     }
   }
 }

@@ -20,6 +20,14 @@ from ._build import library
 from .kernels import _DTYPE_CODE, _ptr, _stream_ptr
 
 _HEAD_DIMS = (16, 32, 64, 128)
+# flash_attention's routes and the limits that pick them (measured on the
+# card: chip_smoke.py times every route over Nk at path B's widest site and
+# at a long-query shape)
+_FA_ROUTES = {"short": 0, "tiles": 1, "wgmma": 2}
+_FA_SHORT_NK = 4         # most keys the short route is picked for
+_FA_SHORT_ROW = 64       # longest query row (bytes) it is picked for
+_FA_WGMMA_MIN_KD = 2048  # Nk * D from which the tensor cores win
+_FA_THREADS = 128        # the short route's block: H <= 128 threads
 
 
 def flash_attention_ref(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
@@ -34,13 +42,37 @@ def flash_attention_ref(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
                         v.float()).to(q.dtype)
 
 
+def flash_route(dtype: torch.dtype, n_heads: int, nk: int, d: int,
+                strides) -> str:
+    """The kernel route for ``n_heads`` heads of width ``d``, ``nk`` keys
+    and the 12 (batch, head, row) element strides of q, k, v and out
+    (every pointer is 16-byte aligned: the wrapper checks). "short" for
+    nk <= 4 where a query row is at most 64 bytes and the heads fit one
+    block of 128 threads (the UNet's label context: a block spans the heads
+    of a run of tokens, so the 2-4 rows that share a 128-byte line are read
+    by one warp; a longer row fills its own lines, and there the tiles
+    route's one (batch, head) a block is faster); "wgmma" for bfloat16 from
+    nk * d >= 2048 on, where q, k and v strides are multiples of 8 (16-byte
+    rows: both products on the tensor cores, fp32 operands split into two
+    bf16 terms); "tiles" for the rest (float32 FMAs on the CUDA cores, K and
+    V through shared memory)."""
+    row = d * dtype.itemsize
+    if (nk <= _FA_SHORT_NK and row <= _FA_SHORT_ROW
+            and n_heads <= _FA_THREADS):
+        return "short"
+    if (dtype == torch.bfloat16 and nk * d >= _FA_WGMMA_MIN_KD
+            and all(s % 8 == 0 for s in strides[:9])):
+        return "wgmma"
+    return "tiles"
+
+
 @functools.cache
 def _flash_fn():
     fn = library("flash_attention").flash_attention_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -70,7 +102,8 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     Kernel limits: float32 or bfloat16, D in (16, 32, 64, 128); strided
     views are read through their strides (last axis dense, the other
     strides multiples of 4 elements, 16-byte aligned), never as if
-    contiguous."""
+    contiguous. :func:`flash_route` picks the kernel route from the
+    dtype, H, Nk, D and the strides."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name}: expected (B, H, N, D), got "
@@ -101,13 +134,14 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
         return out
     strides = sum((_row_strides(name, t) for name, t in
                    (("q", q), ("k", k), ("v", v), ("out", out))), ())
+    route = flash_route(q.dtype, h, nk, d, strides)
     rc = _flash_fn()(_DTYPE_CODE[q.dtype], _ptr(q), _ptr(k), _ptr(v),
                      _ptr(out), b, h, nq, nk, d,
                      (ctypes.c_longlong * 12)(*strides), float(scale),
-                     _stream_ptr(q))
+                     _FA_ROUTES[route], _stream_ptr(q))
     if rc:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({route} "
+                           f"route): CUDA error {rc}")
     flash_attention.launches += 1
     return out
 

@@ -546,11 +546,50 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() @ b.float()).to(a.dtype)
 
 
+# matmul's routes and their limits (csrc/matmul.cu)
+_MM_ROUTES = {"rows": 0, "small_k": 1, "wgmma": 2, "tiles": 3}
+_MM_ROWS_MAX_N = 8     # ROWS_MAXN
+_MM_SMALL_K = 8        # SMALL_K_MAX
+_MM_WGMMA_MIN_K = 64   # one 64-deep k-tile of bf16
+
+
+def _major(rows: int, cols: int, rs: int, cs: int):
+    """0 when a (rows, cols) operand's rows are contiguous and start on 16
+    bytes of bf16 (row stride a multiple of 8), 1 when its columns are,
+    None when neither; an extent of 1 takes any stride (as in the kernel's
+    ``major_of``)."""
+    if (cs == 1 or cols == 1) and (rs % 8 == 0 or rows == 1):
+        return 0
+    if (rs == 1 or rows == 1) and (cs % 8 == 0 or cols == 1):
+        return 1
+    return None
+
+
+def matmul_route(dtype: torch.dtype, m: int, k: int, n: int, a_strides,
+                 b_strides, aligned: bool = True) -> str:
+    """The kernel route for a (M, K) @ (K, N) product whose operands have
+    the given (row, column) element strides; ``aligned``: both data
+    pointers on 16 bytes. "rows" for N <= 8 output columns with a's rows
+    contiguous (the codec's encode); "small_k" for K <= 8 (the decode);
+    "wgmma" for bf16 with K >= 64 and each operand's rows or columns
+    contiguous and 16-byte aligned (tensor cores, either major read in
+    place); "tiles" for the rest (float32 FMAs on the CUDA cores)."""
+    if n <= _MM_ROWS_MAX_N and a_strides[1] == 1:
+        return "rows"
+    if k <= _MM_SMALL_K:
+        return "small_k"
+    if (dtype == torch.bfloat16 and k >= _MM_WGMMA_MIN_K and aligned
+            and _major(m, k, *a_strides) is not None
+            and _major(k, n, *b_strides) is not None):
+        return "wgmma"
+    return "tiles"
+
+
 @functools.cache
 def _matmul_fn():
     fn = library("matmul").matmul_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -563,8 +602,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Kernel limits: float32 or bfloat16, both operands alike and on one
     device; any M, N, K and any strides (a transposed view is read in
     place, a contiguous one is read faster). The TPU function's ``tile_m``
-    and ``tile_n`` are not kept: the kernel picks its tile from the
-    shape."""
+    and ``tile_n`` are not kept: :func:`matmul_route` picks the kernel
+    route from the dtype, shape and strides."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} are not (M, K) and (K, N)")
@@ -584,11 +623,15 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     if max(m, n, k) >= 2 ** 31:
         raise ValueError(f"matmul: a dimension of {(m, k, n)} exceeds int32")
+    route = matmul_route(a.dtype, m, k, n, a.stride(), b.stride(),
+                         (a.data_ptr() | b.data_ptr()) % 16 == 0)
     rc = _matmul_fn()(_DTYPE_CODE[a.dtype], a.data_ptr(), b.data_ptr(),
                       out.data_ptr(), m, n, k, a.stride(0), a.stride(1),
-                      b.stride(0), b.stride(1), _stream_ptr(a))
+                      b.stride(0), b.stride(1), _MM_ROUTES[route],
+                      _stream_ptr(a))
     if rc:
-        raise RuntimeError(f"matmul kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"matmul kernel launch failed ({route} route): "
+                           f"CUDA error {rc}")
     matmul.launches += 1
     return out
 

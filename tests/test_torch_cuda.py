@@ -337,6 +337,90 @@ def test_matmul_matches_plain_version(dtype, m, k, n):
         assert float((out.float() - ref.float()).abs().max()) <= tol
 
 
+def _views(t, major):
+    """t itself (rows contiguous) or the same values as a transposed view
+    of a column-major copy (columns contiguous)."""
+    return t if major == "row" else t.t().contiguous().t()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("a_major,b_major", [("row", "row"), ("row", "col"),
+                                             ("col", "row"), ("col", "col")])
+@pytest.mark.parametrize("m,k,n", [
+    (512, 1, 4096), (512, 2, 4096), (333, 8, 1000), (100, 9, 130),
+    (100, 16, 130), (129, 64, 257), (200, 72, 136), (136, 1000, 264),
+    (1000, 1000, 1000), (64, 128, 64), (2048, 256, 2048)])
+def test_matmul_routes_match_plain_version(dtype, a_major, b_major, m, k, n):
+    """Every route at its edges: K at and past the small-K limit, bf16 M,
+    N and K that are no tile multiples on the tensor cores, each operand
+    in either major; the bars of ``test_matmul_matches_plain_version``."""
+    g = torch.Generator().manual_seed(m * k + n)
+    a = _views(torch.randn(m, k, generator=g).to("cuda", dtype), a_major)
+    b = _views(torch.randn(k, n, generator=g).to("cuda", dtype), b_major)
+    route = kernels.matmul_route(dtype, m, k, n, a.stride(), b.stride())
+    if (dtype == torch.bfloat16 and k >= 64
+            and m % 8 == k % 8 == n % 8 == 0):
+        assert route == "wgmma"  # rows 16-byte aligned in either major
+    got = kernels.matmul(a, b)
+    torch.cuda.synchronize()
+    ref = kernels.matmul_ref(a, b)
+    tol = _tol(dtype, ref, 2 * 2.0 ** -23 * max(1, k) ** 0.5)
+    assert float((got.float() - ref.float()).abs().max()) <= tol, route
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,nq,nk,d", [
+    (3, 4, 100, 4, 16), (3, 4, 100, 5, 16), (2, 2, 70, 4, 64),
+    (2, 3, 130, 3, 32), (1, 128, 9, 2, 16), (1, 129, 9, 2, 16),
+    (2, 2, 70, 31, 64), (2, 2, 70, 32, 64), (2, 3, 65, 127, 16),
+    (2, 3, 65, 128, 16), (1, 2, 200, 300, 32), (1, 2, 200, 300, 64),
+    (1, 2, 200, 300, 128), (1, 1, 1, 1000, 64)])
+def test_flash_attention_routes_match_plain_version(dtype, b, h, nq, nk, d):
+    """Each route at its edges: Nk at the short route's limit and one past
+    it, more heads than its block holds, Nk * D at the tensor cores' limit
+    and one short of it, bf16 long contexts on the tensor cores with q
+    split (D = 32, 128) and exact (D = 16, 64), Nq no multiple of 64;
+    (B, N, H, D) views and contiguous tensors. fp32 1e-5 of scale, bf16 4
+    ulps."""
+    g = torch.Generator().manual_seed(nq * nk + d)
+    q, k, v = (torch.randn(b, n, h, d, generator=g).to("cuda", dtype)
+               .transpose(1, 2) for n in (nq, nk, nk))
+    ref = attention.flash_attention_ref(q, k, v)
+    for args in ((q, k, v), (q.contiguous(), k.contiguous(), v.contiguous())):
+        got = attention.flash_attention(*args)
+        torch.cuda.synchronize()
+        assert float((got.float() - ref.float()).abs().max()) <= _tol(
+            dtype, ref, 1e-5)
+
+
+def test_path_b_launches_and_routes():
+    """Path B at its serving width (batch 64: 192 rows of 28 x 28 through
+    the CFG sampler), float32, 2 steps: 5 flash_attention launches per
+    forward, the two at D = 16 on the short route and the three at D = 32
+    and 64 on the tiles route, and 8 + 2 GroupNorm launches, as before."""
+    tree = convert.from_flax(convert.init_params(entry.CFG_UNET, seed=2))
+    x = torch.randn(64, 28, 28, 3, device="cuda")
+    routes = []
+    pick = attention.flash_route
+
+    def spy(dtype, h, nk, d, strides):
+        routes.append((d, pick(dtype, h, nk, d, strides)))
+        return routes[-1][1]
+
+    f0 = attention.flash_attention.launches
+    n0 = kernels.groupnorm_silu.launches
+    s0 = kernels.groupnorm_silu_split.launches
+    with mock.patch.object(attention, "flash_route", spy):
+        out = entry.sample_cfg(tree, x, 3, 1, n_steps=2)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches - f0 == 5 * 2
+    assert sorted(routes) == [(16, "short")] * 4 + [(32, "tiles")] * 4 + [
+        (64, "tiles")] * 2
+    assert kernels.groupnorm_silu.launches - n0 == 8 * 2
+    assert kernels.groupnorm_silu_split.launches - s0 == 2 * 2
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+
+
 def test_latent_path_launches_its_kernels():
     """Full width, small data, 3 steps: one blend_eps launch per step for
     ddim and em, none for avg and ito; one matmul launch per encode and

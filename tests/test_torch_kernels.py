@@ -467,3 +467,99 @@ def test_flash_attention_rejects(bad):
         k, v = torch.zeros(2, 2, 0, 16), torch.zeros(2, 2, 0, 16)
     with pytest.raises(ValueError):
         attention.flash_attention(q, k, v)
+
+
+def _bnhd_strides(h, n, d):
+    """(batch, head, row) strides of a (B, N, H, D) buffer seen as
+    (B, H, N, D): the layout the UNet's cross-attention hands over."""
+    return (n * h * d, d, h * d)
+
+
+@pytest.mark.parametrize("dtype,h,nk,d,strides,route", [
+    # path B's three sites: 2 label tokens, strided views; the short route
+    # where a query row is at most 64 bytes
+    (torch.float32, 4, 2, 16, _bnhd_strides(4, 784, 16) * 4, "short"),
+    (torch.float32, 4, 2, 32, _bnhd_strides(4, 196, 32) * 4, "tiles"),
+    (torch.float32, 4, 2, 64, _bnhd_strides(4, 49, 64) * 4, "tiles"),
+    (torch.bfloat16, 4, 2, 16, _bnhd_strides(4, 784, 16) * 4, "short"),
+    (torch.bfloat16, 4, 2, 32, _bnhd_strides(4, 196, 32) * 4, "short"),
+    (torch.bfloat16, 4, 2, 64, _bnhd_strides(4, 49, 64) * 4, "tiles"),
+    # the short route's limit and one past it; more heads than a block holds
+    (torch.float32, 8, 4, 16, (2048, 1024, 16) * 4, "short"),
+    (torch.float32, 8, 5, 16, (2048, 1024, 16) * 4, "tiles"),
+    (torch.bfloat16, 128, 4, 16, (4096, 16, 2048) * 4, "short"),
+    (torch.bfloat16, 129, 4, 16, (4128, 16, 2064) * 4, "tiles"),
+    # bf16 on the tensor cores from Nk * D = 2048 on
+    (torch.bfloat16, 8, 31, 64, (8192, 4096, 64) * 4, "tiles"),
+    (torch.bfloat16, 8, 32, 64, (8192, 4096, 64) * 4, "wgmma"),
+    (torch.bfloat16, 4, 127, 16, _bnhd_strides(4, 784, 16) * 4, "tiles"),
+    (torch.bfloat16, 4, 128, 16, _bnhd_strides(4, 784, 16) * 4, "wgmma"),
+    # long contexts: bf16 on the tensor cores, float32 on the CUDA cores
+    (torch.bfloat16, 8, 4096, 64, (8 * 4096 * 64, 4096 * 64, 64) * 4,
+     "wgmma"),
+    (torch.bfloat16, 8, 4096, 128, _bnhd_strides(8, 4096, 128) * 4, "wgmma"),
+    (torch.float32, 8, 4096, 64, (8 * 4096 * 64, 4096 * 64, 64) * 4,
+     "tiles"),
+    # bf16 rows that are 8 but not 16 bytes apart, in q, k or v
+    (torch.bfloat16, 3, 100, 32, (3 * 100 * 20, 100 * 20, 20) * 4, "tiles"),
+    (torch.bfloat16, 16, 100, 64, (4096, 1024, 64) * 2 + (4096, 1024, 68)
+     + (4096, 1024, 64), "tiles"),
+    # out's strides do not enter: its stores are 4 bytes wide
+    (torch.bfloat16, 16, 100, 64, (4096, 1024, 64) * 3 + (4100, 1028, 68),
+     "wgmma"),
+])
+def test_flash_route(dtype, h, nk, d, strides, route):
+    assert attention.flash_route(dtype, h, nk, d, strides) == route
+
+
+def _flash_wgmma_emulation(q, k, v, scale, bkv):
+    """The arithmetic of flash_attention's bf16 tensor-core route on the
+    CPU, before the output's rounding: q * scale split into two bf16 terms
+    (qh + ql), S = qh k^T + ql k^T in float32; per tile of ``bkv`` keys the
+    running max from -1e30, p = exp(s - m) split into ph + pl, O = O * alpha
+    + ph v + pl v, float32 denominators; O / l in float32."""
+    bf = torch.bfloat16
+    qs = q.float() * scale
+    qh = qs.to(bf).float()
+    ql = (qs - qh).to(bf).float()
+    kf, vf = k.float(), v.float()
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    l = torch.zeros(q.shape[:-1] + (1,))
+    acc = torch.zeros(q.shape[:-1] + (v.shape[-1],))
+    for k0 in range(0, k.shape[2], bkv):
+        kt, vt = kf[:, :, k0:k0 + bkv], vf[:, :, k0:k0 + bkv]
+        s = qh @ kt.transpose(-1, -2) + ql @ kt.transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        ph = p.to(bf).float()
+        pl = (p - ph).to(bf).float()
+        acc = acc * alpha + ph @ vt + pl @ vt
+        m = m_new
+    return acc / l
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_wgmma_split_arithmetic(d):
+    """The bf16 tensor-core route's split products hold the plain version
+    to the bf16 bar (4 ulps of scale) on the rounded output, and to 2^-12
+    of scale before that rounding: what the split leaves out of each fp32
+    product is below 2^-16 of it, where a single bf16 term of q * scale and
+    of p would miss by up to 2^-9. D = 32 and 128 split q (their scale is
+    not a power of two), D = 64 does not (ql is 0)."""
+    g = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn(1, 2, n, d, generator=g).bfloat16()
+               for n in (256, 512, 512))
+    scale = 1.0 / d ** 0.5
+    bkv = 128 if d <= 64 else 64
+    emu = _flash_wgmma_emulation(q, k, v, scale, bkv)
+    ref = attention.flash_attention_ref(q.float(), k.float(), v.float(),
+                                        scale)
+    bar = max(1.0, float(ref.abs().max()))
+    assert float((emu - ref).abs().max()) <= 2.0 ** -12 * bar
+    got16 = emu.to(torch.bfloat16).float()
+    ref16 = attention.flash_attention_ref(q, k, v, scale).float()
+    assert float((got16 - ref16).abs().max()) <= 4 * 2.0 ** -8 * bar
+    qs = q.float() * scale
+    assert bool((qs - qs.to(torch.bfloat16).float() == 0).all()) == (d == 64)

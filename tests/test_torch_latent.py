@@ -168,6 +168,36 @@ def test_matmul_rejects(bad):
         kernels.matmul(a, b)
 
 
+@pytest.mark.parametrize("dtype,m,k,n,a_strides,b_strides,aligned,route", [
+    # the codec: encode (N <= 8 columns) and decode (K = 2), both presets
+    (torch.float32, 10000, 4096, 2, (4096, 1), (2, 1), True, "rows"),
+    (torch.float32, 512, 2, 4096, (2, 1), (4096, 1), True, "small_k"),
+    (torch.float32, 64, 2, 784, (2, 1), (784, 1), True, "small_k"),
+    # the small-K limit and one past it, in either dtype
+    (torch.float32, 100, 8, 100, (8, 1), (100, 1), True, "small_k"),
+    (torch.float32, 100, 9, 100, (9, 1), (100, 1), True, "tiles"),
+    (torch.bfloat16, 100, 8, 128, (8, 1), (128, 1), True, "small_k"),
+    (torch.bfloat16, 100, 9, 128, (16, 1), (128, 1), True, "tiles"),
+    (torch.float32, 3, 1, 20, (1, 1), (20, 1), True, "small_k"),
+    # bf16 on the tensor cores from K = 64, either operand in either major
+    (torch.bfloat16, 2048, 2048, 2048, (2048, 1), (2048, 1), True, "wgmma"),
+    (torch.bfloat16, 2048, 2048, 2048, (1, 2048), (1, 2048), True, "wgmma"),
+    (torch.bfloat16, 512, 64, 12288, (64, 1), (12288, 1), True, "wgmma"),
+    (torch.bfloat16, 512, 63, 12288, (64, 1), (12288, 1), True, "tiles"),
+    (torch.bfloat16, 1, 128, 100, (7, 1), (1, 128), True, "wgmma"),
+    # rows not 16 bytes apart, an operand with no unit stride, misalignment
+    (torch.bfloat16, 257, 1000, 130, (1000, 1), (130, 1), True, "tiles"),
+    (torch.bfloat16, 256, 128, 256, (256, 2), (256, 1), True, "tiles"),
+    (torch.bfloat16, 256, 128, 256, (128, 1), (256, 1), False, "tiles"),
+    # float32 stays on the CUDA cores; a transposed a is no row stream
+    (torch.float32, 2048, 2048, 2048, (2048, 1), (2048, 1), True, "tiles"),
+    (torch.float32, 4096, 4096, 2, (1, 4096), (2, 1), True, "tiles"),
+])
+def test_matmul_route(dtype, m, k, n, a_strides, b_strides, aligned, route):
+    assert kernels.matmul_route(dtype, m, k, n, a_strides, b_strides,
+                                aligned) == route
+
+
 # --------------------------------------------------------------------- MLPs
 def _perturbed(tree, seed):
     """flax zeroes every bias at init: add N(0, 0.1^2) to every leaf so a

@@ -119,9 +119,11 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port (and chip_smoke.py) imports with JAX and
-    the JAX package blocked, and no source names them in an import."""
-    sources = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """Every module of the port (and chip_smoke.py, compare_builds.py)
+    imports with JAX and the JAX package blocked, and no source names them
+    in an import."""
+    scripts = ["chip_smoke", "compare_builds"]
+    sources = sorted(PKG.rglob("*.py")) + [ROOT / f"{m}.py" for m in scripts]
     for src in sources:
         for node in ast.walk(ast.parse(src.read_text())):
             names = ([a.name for a in node.names]
@@ -133,7 +135,7 @@ def test_port_imports_nothing_of_jax():
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
             for p in sorted(PKG.rglob("*.py"))]
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
-            for m in mods] + ["chip_smoke"]
+            for m in mods] + scripts
     # the walk reaches every slice's modules, the latent slice's included
     assert {PKG.name + "." + m for m in (
         "models.dit", "models.unet", "models.mlp", "ops.kernels",
