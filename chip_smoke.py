@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's serving paths on one CUDA card.
+"""Drives the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -19,8 +19,9 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     ``groupnorm_silu`` at forced row-split counts beside the wrapper's
     choice, and its two-part form ``groupnorm_silu_split`` at the UNet
     paths' shapes and at ragged ones (groups that straddle the parts, one
-    part only); the bfloat16 kernels' fast GELU and sigmoid where they
-    saturate (|x| around 10 and 80);
+    part only); ``flash_attention`` at head widths it pads (8, 24, 48, 80,
+    100); the bfloat16 kernels' fast GELU and sigmoid where they saturate
+    (|x| around 10 and 80);
  4. the DiT path: 3 composed ``dit_p14_d256_l4`` experts (random weights
     from a seed), 50-step DDIM, batch 2048, bf16, through
     ``entry.sample``: finite output, exactly 600 ``fused_dit_block``
@@ -52,7 +53,21 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     ``blend_eps`` launches for ``ddim`` and ``em`` and none for ``avg`` and
     ``ito``, one ``matmul`` launch per decode, the kernel path against the
     plain path, latents/s, profile;
-10. one ``kernels`` JSON line, then the result line.
+10. the training path, the protocol of ``scripts/quality_gate_flagship.py``
+    cut to the phase's time: the three full-width ``dit_p14_d256_l4``
+    experts trained through ``entry.train_experts`` (batch 256, bf16
+    compute, digit subsets of procedural MNIST made on the card) for a few
+    hundred steps each: train steps/s and images/s, every expert's loss
+    curve (its last 50 steps must average below half its first 10), finite
+    EMA trees, a bitwise save / restore through the port's
+    ``CheckpointManager``, device ms per step and busy share from a short
+    profile; then the EMA experts composed through ``entry.sample`` (50
+    steps, bf16, exactly 600 ``fused_dit_block`` launches); the unfolded
+    ``DiT.apply`` with ``pallas_attn=True`` (one ``short_seq_attention``
+    launch a block) against its einsum attention; and the gate's numbers
+    against the committed 48k-step PASS, printed as those of an
+    under-trained run (a PASS is not a condition);
+11. one ``kernels`` JSON line, then the result line.
 
 Exits with code 2 and prints no result where there is no CUDA card.
 """
@@ -61,6 +76,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -151,6 +167,16 @@ MM_SHAPES = [(LATENT_N, LATENT_SIZE ** 2, 2), (EM_N, EM_SIZE ** 2, 2),
 MM_TIMED = MM_SHAPES[:7]
 # depths of the decode timed on each route that can take them
 MM_ROUTE_K = (2, 4, 8, 9, 16)
+# flash_attention head widths the wrapper pads to the next kernel width,
+# at (B, H, Nq, Nk)
+FA_PAD_D = (8, 24, 48, 80, 100)
+FA_PAD_SHAPE = (4, 4, 256, 77)
+# training path: the gate's protocol cut to the phase's time. Each of the
+# three full-width experts takes TRAIN_STEPS steps at the gate's batch, the
+# probe PROBE_STEPS (the committed PASS took 48000 and 2000); the served
+# program and the gate's scoring run at the gate's 256 samples, 50 steps
+TRAIN_STEPS, TRAIN_BATCH, PROBE_STEPS, GATE_SAMPLES = 500, 256, 500, 256
+PROFILE_TRAIN_STEPS = 20
 
 
 def log(msg: str) -> None:
@@ -569,6 +595,27 @@ def check_unet_kernels(kernels, attention):
                 rows[("flash_attention", dtype)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                     bound_by=by, library_ms=lib)
+        # head widths the kernel does not take: padded with zero columns to
+        # the next of 16, 32, 64, 128, one launch, held at the true D
+        b, h, nq, nk = FA_PAD_SHAPE
+        for d in FA_PAD_D:
+            q, k, v = (torch.randn(b, n, h, d, generator=gen).to("cuda", dtype)
+                       .transpose(1, 2) for n in (nq, nk, nk))
+            n0 = attention.flash_attention.launches
+            got = attention.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            ref = attention.flash_attention_ref(q, k, v)
+            err, tol = max_err(got, ref), tolerance(dtype, ref, 1e-5)
+            width = attention.flash_head_dim(d)
+            log(f"flash_attention {name} B={b} H={h} Nq={nq} Nk={nk} D={d} "
+                f"(padded to {width}): max_abs_err={err:.3e} "
+                f"tol={tol:.3e}, launches "
+                f"{attention.flash_attention.launches - n0}, layout "
+                f"{'kept' if got.stride() == q.stride() else 'NOT kept'}")
+            if not (err <= tol and got.stride() == q.stride()
+                    and attention.flash_attention.launches == n0 + 1):
+                fail(f"flash_attention at D={d} disagrees with its plain "
+                     f"version")
     return rows
 
 
@@ -1034,6 +1081,148 @@ def latent_path(card, convert, entry, pca_codec, kernels, attention) -> dict:
     return launches
 
 
+def training_path(card, entry, kernels, attention) -> int:
+    """Phase 10. Returns the fused_dit_block launches of the served run."""
+    import dataclasses
+    import shutil
+    from pathlib import Path
+    from composable_diffusion_models_tpu_torch import (checkpoint, convert,
+                                                       data, gate, train)
+    from composable_diffusion_models_tpu_torch.schedules import VPSchedule
+
+    # a. the gate's three experts at full width, bf16 compute
+    trees, losses = None, None
+
+    def train_all():
+        nonlocal trees, losses
+        trees, losses = entry.train_experts(steps=TRAIN_STEPS,
+                                            batch_size=TRAIN_BATCH)
+    _, sec = timed(train_all)
+    steps = len(trees) * TRAIN_STEPS
+    log(f"training path: {len(trees)} dit_p14_d256_l4 experts x "
+        f"{TRAIN_STEPS} steps, batch {TRAIN_BATCH}, bf16 compute over "
+        f"float32 parameters, Adam 2e-4, EMA 0.999, procedural digits made "
+        f"on the card: {sec:.1f} s = {steps / sec:.2f} train steps/s = "
+        f"{steps * TRAIN_BATCH / sec:.0f} train images/s (data build, init "
+        f"and first-call set-up included) ({card})")
+    for i, loss in enumerate(losses):
+        loss = loss.float().cpu()
+        first, last = float(loss[:10].mean()), float(loss[-50:].mean())
+        curve = ", ".join(f"{float(loss[j:j + 25].mean()):.4f}"
+                          for j in range(0, len(loss), 25))
+        log(f"  expert {i} (digits {gate.SUBSETS[i]}): mean loss of the "
+            f"first 10 steps {first:.4f}, of the last 50 {last:.4f}; "
+            f"25-step window means: {curve}")
+        if not (math.isfinite(last) and last < 0.5 * first):
+            fail(f"expert {i}'s loss did not fall below half its start")
+    for tree in trees:
+        if not all(bool(torch.isfinite(leaf).all())
+                   for leaf in train.flatten(tree)[1]):
+            fail("an EMA tree is not finite")
+
+    # b. the EMA trees through the CheckpointManager and back
+    root = Path(__file__).resolve().parent / "outputs" / "chip_smoke_ckpt"
+    mgr = checkpoint.CheckpointManager(str(root), "flagship")
+    state = {"ema_params": trees, "step": TRAIN_STEPS}
+    mgr.save("experts", state)
+    mgr.save_step("experts", state, TRAIN_STEPS)
+    back = [mgr.load("experts", device="cuda"),
+            mgr.restore_latest("experts", device="cuda")[0]]
+    same = all(torch.equal(a, b) and a.dtype == b.dtype
+               for got in back
+               for t, r in zip(trees, got["ema_params"])
+               for a, b in zip(train.flatten(t)[1], train.flatten(r)[1]))
+    shutil.rmtree(root)
+    log(f"  CheckpointManager save / load and save_step / restore_latest "
+        f"of the EMA trees: bitwise {same}")
+    if not same:
+        fail("a checkpoint did not restore the EMA trees bitwise")
+
+    # c. steady state of one expert's training, then a short profile
+    imgs, _ = data.get_mnist(1, n=8192, classes=gate.SUBSETS[0],
+                             device="cuda")
+    p0 = convert.flax_init(entry.GATE_DIT, 1, "cuda")
+
+    def run():
+        return train.train_expert(2, entry.GATE_DIT.apply, p0, VPSchedule(),
+                                  imgs,
+                                  steps=PROFILE_TRAIN_STEPS,
+                                  batch_size=TRAIN_BATCH, ema_decay=0.999)
+    run()
+    _, sec = timed(run)
+    log(f"  {PROFILE_TRAIN_STEPS} steps of one expert without the profiler: "
+        f"{sec / PROFILE_TRAIN_STEPS * 1e3:.3f} ms/step = "
+        f"{PROFILE_TRAIN_STEPS / sec:.2f} train steps/s = "
+        f"{TRAIN_BATCH * PROFILE_TRAIN_STEPS / sec:.0f} train images/s")
+    profile_steps(f"training, {PROFILE_TRAIN_STEPS} steps of one expert, "
+                  f"batch {TRAIN_BATCH}", run, PROFILE_TRAIN_STEPS)
+
+    # d. the EMA experts served through the folded DiT on fused_dit_block
+    x = torch.randn(GATE_SAMPLES, 28, 28, 1,
+                    generator=torch.Generator().manual_seed(9)).cuda()
+    entry.sample(trees, x[:8], n_steps=2)  # warm-up
+    reset_launches(kernels, attention)
+    out, sec = timed(lambda: entry.sample(trees, x, n_steps=N_STEPS))
+    served = read_launches(kernels, attention)
+    want = 4 * len(trees) * N_STEPS
+    log(f"  the trained EMA experts composed through entry.sample "
+        f"({GATE_SAMPLES} samples, {N_STEPS} steps, bf16): "
+        f"{GATE_SAMPLES / sec:.1f} images/s; launches {served}")
+    if not bool(torch.isfinite(out).all()) or \
+            tuple(out.shape) != (GATE_SAMPLES, 28, 28, 1):
+        fail("the served EMA experts' output is not finite or misshapen")
+    if served["fused_dit_block"] != want:
+        fail(f"fused_dit_block launched {served['fused_dit_block']} times "
+             f"serving the EMA experts, expected {want}")
+
+    # e. the unfolded forward's inference route: DiT.apply with its
+    # attention core through short_seq_attention (fused-QKV layout, random
+    # full-width weights), against the einsum route, no autograd
+    tree, = entry.load_experts(
+        [convert.from_flax(convert.init_params(entry.FLAGSHIP, seed=0))],
+        dtype=torch.float32)
+    t = torch.full((GATE_SAMPLES,), 0.5, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(entry.FLAGSHIP, dtype=dtype)
+        with torch.no_grad():
+            ref = cfg.apply(tree, x, t)
+            n0 = kernels.short_seq_attention.launches
+            got = dataclasses.replace(cfg, pallas_attn=True).apply(tree, x, t)
+            torch.cuda.synchronize()
+        n_k2 = kernels.short_seq_attention.launches - n0
+        diff = (got - ref).abs()
+        scale = max(1.0, float(ref.abs().max()))
+        log(f"  DiT.apply (unfolded, {GATE_SAMPLES} images, {str(dtype)[6:]})"
+            f" with pallas_attn=True vs the einsum attention: "
+            f"short_seq_attention launches {n_k2}, max |diff| "
+            f"{float(diff.max()):.3e}, mean {float(diff.mean()):.3e} at "
+            f"output scale {scale:.1f}")
+        # float32: summation order (1e-5 of scale); bf16: the einsum route
+        # rounds the scores to bf16 before the softmax, the kernel does not
+        # (held on the mean, as the other bf16 path checks)
+        ok = (float(diff.max()) <= 1e-5 * scale if dtype == torch.float32
+              else float(diff.mean()) <= 0.05)
+        if n_k2 != entry.FLAGSHIP.depth or not ok:
+            fail("DiT.apply with pallas_attn=True disagrees with the einsum "
+                 "route or missed short_seq_attention")
+
+    # f. the gate's numbers for these under-trained experts
+    report, sec = timed(lambda: entry.quality_gate(
+        train_steps=TRAIN_STEPS, probe_steps=PROBE_STEPS,
+        n_samples=GATE_SAMPLES, experts=trees))
+    base = json.loads(gate.BASELINE.read_text())
+    log(f"  quality gate of an UNDER-TRAINED run ({TRAIN_STEPS} steps per "
+        f"expert; the committed PASS took {base['train_steps']}), probe "
+        f"{PROBE_STEPS} steps, {report['n_samples']} samples, {sec:.1f} s: "
+        f"probe held-in {report['probe_heldin']}, solo in-subset "
+        + ", ".join(f"{s['in_set_frac']:.3f}"
+                    for s in report["solo"].values())
+        + f"; verdict against {gate.BASELINE.name} (not a condition of this "
+        f"run): {report['verdict']}")
+    log(json.dumps({"gate_under_trained": report["criteria"]}))
+    return served["fused_dit_block"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1157,7 +1346,10 @@ def main() -> int:
     launches["blend_eps"] = latent_launches["blend_eps"]
     launches["matmul"] = latent_launches["matmul"]
 
-    # 10. the kernels line, then the result line. launches: each kernel's
+    # 10. the training path, served through fused_dit_block
+    training_path(card, entry, kernels, attention)
+
+    # 11. the kernels line, then the result line. launches: each kernel's
     # count on the path that serves it (fused_dit_block: the DiT path;
     # short_seq_attention: fused_block=False; groupnorm_silu and its two-part
     # form groupnorm_silu_split (the same source; the JAX function it

@@ -1,4 +1,6 @@
-"""Weight bridge: flax parameter trees <-> torch tensors, and numpy init.
+"""Weight bridge: flax parameter trees <-> torch tensors, random trees for
+parity tests (``init_params``), the flax modules' own init distribution for
+training (``flax_init``), and optax's Adam state (``adam_from_optax``).
 
 A flax tree is a nested dict of arrays. ``from_flax`` keeps every key path
 and every shape as flax stores it: Dense kernels (in, out), Conv kernels
@@ -18,8 +20,10 @@ import torch
 
 from .models.dit import DiT
 from .models.mlp import LatentDiffusionMLP, ScoreMLP
+from .models.probe import ProbeClassifier
 from .models.unet import UNet
 from .ops.pca import PCA
+from .rng import Draws
 
 Shapes = Dict[Tuple[str, ...], Tuple[Tuple[int, ...], int]]
 
@@ -60,13 +64,31 @@ def unet_torch_layout(tree: Any) -> Any:
 
 def param_shapes(cfg) -> Shapes:
     """{key path: (shape, fan_in)} of the flax module's ``init`` tree under
-    "params", for a :class:`DiT`, :class:`UNet`, :class:`ScoreMLP` or
-    :class:`LatentDiffusionMLP` configuration."""
+    "params", for a :class:`DiT`, :class:`UNet`, :class:`ScoreMLP`,
+    :class:`LatentDiffusionMLP` or :class:`ProbeClassifier` configuration."""
     if isinstance(cfg, UNet):
         return _unet_shapes(cfg)
     if isinstance(cfg, (ScoreMLP, LatentDiffusionMLP)):
         return _mlp_shapes(cfg)
+    if isinstance(cfg, ProbeClassifier):
+        return _probe_shapes(cfg)
     return _dit_shapes(cfg)
+
+
+def _probe_shapes(cfg: ProbeClassifier) -> Shapes:
+    out: Shapes = {}
+    cin = 1  # the digit probe reads one channel
+    for i, mult in enumerate((1, 2, 4)):
+        cout = cfg.base_dim * mult
+        out[(f"conv_{i}", "kernel")] = ((3, 3, cin, cout), 9 * cin)
+        out[(f"conv_{i}", "bias")] = ((cout,), 0)
+        cin = cout
+    out[("Dense_0", "kernel")] = ((cin, 128), cin)
+    out[("Dense_0", "bias")] = ((128,), 0)
+    for i, n in enumerate(cfg.num_classes):
+        out[(f"head_{i}", "kernel")] = ((128, n), 128)
+        out[(f"head_{i}", "bias")] = ((n,), 0)
+    return out
 
 
 def _mlp_shapes(cfg) -> Shapes:
@@ -215,6 +237,57 @@ def init_params(cfg, seed: int) -> Dict[str, Any]:
             node = node.setdefault(k, {})
         node[path[-1]] = val.astype(np.float32)
     return {"params": params}
+
+
+# the DiT's adaLN-Zero leaves: zero at init, so the network is the zero
+# function (the flax module's kernel_init=zeros)
+_ZERO_KERNELS = {"Dense_0", "final_mod", "unpatchify"}
+
+
+def flax_init(cfg, key: int, device="cpu") -> Dict[str, Any]:
+    """A float32 tree distributed as the flax module's ``init`` makes it, for
+    a :class:`DiT` or a :class:`ProbeClassifier`, drawn through
+    ``rng.Draws(key, device)`` one leaf at a time in sorted key-path order:
+    kernels lecun-normal (N(0, 1/fan_in) truncated at two of its standard
+    deviations, rescaled as flax's ``variance_scaling`` does), biases zero,
+    the DiT's label embeddings N(0, 1/dim) and positions N(0, 0.02^2), and
+    its adaLN modulation and unpatchify kernels zero. The bits are not
+    flax's: the two frameworks draw differently."""
+    if not isinstance(cfg, (DiT, ProbeClassifier)):
+        raise TypeError(f"flax_init covers DiT and ProbeClassifier, got "
+                        f"{type(cfg).__name__}")
+    draws = Draws(key, device)
+    params: Dict[str, Any] = {}
+    for path, (shape, fan_in) in sorted(param_shapes(cfg).items()):
+        zero = path[-1] == "bias" or (
+            isinstance(cfg, DiT) and path[-1] == "kernel"
+            and path[-2] in _ZERO_KERNELS)
+        if zero:
+            val = torch.zeros(shape, device=device)
+        elif path[-1] == "embedding":
+            val = draws.normal(shape) / math.sqrt(shape[-1])
+        elif path[-1] == "pos_emb":
+            val = draws.normal(shape) * 0.02
+        else:
+            # jax.random.truncated_normal(-2, 2) by the inverse CDF, times
+            # sqrt(1/fan_in) / 0.8796 (the truncated unit normal's std)
+            lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
+            z = math.sqrt(2) * torch.erfinv(draws.uniform(shape, lo, hi))
+            val = z.clamp(-2.0, 2.0) * (
+                math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+        node = params
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = val
+    return {"params": params}
+
+
+def adam_from_optax(count, mu, nu) -> Dict[str, Any]:
+    """The port's Adam state (``train.adam_init``'s form) from an optax
+    ``ScaleByAdamState``'s fields as numpy: the step ``count`` and the two
+    moment trees, which keep the parameters' key paths."""
+    return {"count": torch.tensor(int(np.asarray(count)), dtype=torch.int32),
+            "mu": from_flax(mu), "nu": from_flax(nu)}
 
 
 def pca_from_numpy(mean, components, explained_variance):

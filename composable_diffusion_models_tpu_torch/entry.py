@@ -22,31 +22,52 @@
   (Euler-Maruyama on the ``mnist_latent2d`` preset). float32 throughout, as
   the presets compute; the K-expert blend of ``ddim`` and ``em`` runs
   through the ``blend_eps`` kernel and the PCA decode through ``matmul``.
+
+And the training path, the protocol of ``scripts/quality_gate_flagship.py``:
+
+* :func:`train_experts`: three ``dit_p14_d256_l4`` experts trained on the
+  digit subsets {0-2}, {3-5}, {6-8} of procedural MNIST made on the card,
+  through the differentiable ``DiT.apply`` in bf16 compute with float32
+  parameters, Adam and an EMA; returns the EMA trees, which :func:`sample`
+  serves as they are.
+* :func:`quality_gate`: the whole gate: a 10-class digit probe, the
+  experts, each sampled solo and the three composed through :func:`sample`
+  (the folded DiT on the ``fused_dit_block`` kernel), the probe's
+  statistics, and the judge against a baseline report (``gate.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
 
-from . import resolve_device, samplers
+from . import data, gate, resolve_device, samplers, train
+from . import eval as ceval
 from .compose import weighted
-from .convert import param_shapes, unet_torch_layout
+from .convert import flax_init, param_shapes, unet_torch_layout
 from .experts import ExpertStack, per_expert
 from .models.dit import DiT, make_folded_apply
 from .models.mlp import ScoreMLP
 from .models.unet import UNet
 from .ops import pca as pca_codec
 from .ops.kernels import blend_eps
+from .rng import Draws, fold_in
 from .samplers import ddim, make_cfg_eps_fn
 from .schedules import VPSchedule
 
 FLAGSHIP = DiT(patch=14, dim=256, depth=4, n_heads=8, in_channels=1,
                qkv_fused=True, img_size=28)
 N_EXPERTS = 3
+# the gate trains the flagship as its script builds it: flax's stock
+# multi-head attention layout (which the folded path serves as well), bf16
+# compute over float32 parameters
+GATE_DIT = dataclasses.replace(FLAGSHIP, qkv_fused=False,
+                               dtype=torch.bfloat16)
 # the unet64 family: base 64, widths (64, 128, 256), GroupNorm(8)
 SHAPES_UNET = UNet(in_channels=3, base_dim=64, channel_mults=(1, 2, 4),
                    num_classes=(3,))
@@ -319,3 +340,128 @@ def sample_latent(params_list: Sequence[Any], pca: pca_codec.PCA, z_init,
     size = math.isqrt(pca.mean.shape[0])
     images = pca.decode(z, (size, size, 1)).clamp(-1.0, 1.0)
     return z, images
+
+
+def train_experts(steps: int = 12000, batch_size: int = 256, lr: float = 2e-4,
+                  ema: float = 0.999, seed: int = 0, data_n: int = 8192,
+                  device=None) -> Tuple[list, list]:
+    """Trains the gate's three ``dit_p14_d256_l4`` experts on the digit
+    subsets ``gate.SUBSETS`` of procedural MNIST (``data_n`` images each,
+    made on the device), with the script's keys: data ``fold_in(seed,
+    3 + i)``, init ``fold_in(seed, 10 + i)``, training ``fold_in(seed,
+    20 + i)``. eps-prediction on ``VPSchedule()``, ``GATE_DIT.apply``
+    (bf16 compute over float32 parameters), Adam at ``lr``, EMA ``ema`` (0:
+    off). Returns (trees, losses): the EMA trees (float32, on the device;
+    :func:`sample` serves them as they are) and each expert's (steps,)
+    losses on the device. ``device=None`` is the CUDA card."""
+    dev = resolve_device(device)
+    trees, losses = [], []
+    for i, subset in enumerate(gate.SUBSETS):
+        imgs, _ = data.get_mnist(fold_in(seed, 3 + i), n=data_n,
+                                 classes=subset, device=dev)
+        p0 = flax_init(GATE_DIT, fold_in(seed, 10 + i), dev)
+        p, loss = train.train_expert(
+            fold_in(seed, 20 + i), GATE_DIT.apply, p0, VPSchedule(), imgs,
+            steps=steps, batch_size=batch_size, lr=lr,
+            ema_decay=ema or None)
+        trees.append(p)
+        losses.append(loss)
+    return trees, losses
+
+
+def quality_gate(train_steps: int = 12000, batch_size: int = 256,
+                 lr: float = 2e-4, ema: float = 0.999,
+                 probe_steps: int = 2000, n_samples: int = 256,
+                 n_steps: int = 50, data_n: int = 8192, seed: int = 0,
+                 baseline=gate.BASELINE, tol: float = 0.02,
+                 div_frac: float = 0.5, fid_slack: float = 1.5,
+                 sanity: bool = False, out: Optional[str] = None,
+                 experts: Optional[Sequence[Any]] = None,
+                 device=None) -> dict:
+    """The protocol of ``scripts/quality_gate_flagship.py`` for the
+    ``dit_p14_d256_l4`` flagship, on the device (``None``: the CUDA card).
+
+    1. A 10-class digit probe (bf16, noise-augmented at 0.1) trained
+       ``probe_steps`` on ``data_n`` procedural digits (key fold_in(seed,
+       1) for the data, fold_in(seed, 2) for the probe); its features of
+       the first 2048 real images anchor the distributional statistics.
+    2. The three experts (:func:`train_experts`; ``experts``: EMA trees it
+       already returned for this seed, to skip the training).
+    3. Each expert sampled solo and the three composed, ``n_samples`` each,
+       ``n_steps`` of DDIM through :func:`sample` in bf16, scored by
+       ``gate.probe_stats``.
+    4. With a ``baseline`` report (a path; None: report only), the verdict
+       of ``gate.judge``; a verdict decided within sampling noise of a
+       threshold is scored again with 4x the samples and a second seed.
+
+    ``sanity`` cuts every size as the script's ``--sanity`` does. Returns
+    the report (the script's JSON) and, with ``out``, writes it there as
+    ``quality_dit_p14_d256_l4[_s<train_steps>].json``. The script also
+    saves image grids; the port does not."""
+    dev = resolve_device(device)
+    if sanity:
+        train_steps, probe_steps = 40, 40
+        n_samples, n_steps, data_n = 16, 4, 256
+        batch_size = 16
+    full_imgs, full_labels = data.get_mnist(fold_in(seed, 1), n=data_n,
+                                            device=dev)
+    probe, probe_params = ceval.train_probe(
+        fold_in(seed, 2), full_imgs, (full_labels,), num_classes=(10,),
+        steps=probe_steps, noise_aug=0.1)
+    heldin = ceval.probe_accuracy(probe, probe_params, full_imgs[:512],
+                                  (full_labels[:512],))
+    real_feats = ceval.probe_features(probe, probe_params, full_imgs[:2048])
+    if experts is None:
+        experts, _ = train_experts(train_steps, batch_size, lr, ema, seed,
+                                   data_n, dev)
+    params_list = load_experts(experts, dev, GATE_DIT.dtype)
+
+    def score(n: int, seed_salt: int) -> dict:
+        res = {"solo": {}, "composed": None}
+        for i, p in enumerate(params_list):
+            x = Draws(fold_in(seed, seed_salt + 30 + i), dev).normal(
+                (n, 28, 28, 1))
+            res["solo"][f"expert_{i}"] = gate.probe_stats(
+                probe, probe_params, sample([p], x, n_steps, device=dev),
+                gate.SUBSETS[i], real_feats)
+        x = Draws(fold_in(seed, seed_salt + 40), dev).normal((n, 28, 28, 1))
+        allowed = tuple(sorted(c for s in gate.SUBSETS for c in s))
+        res["composed"] = gate.probe_stats(
+            probe, probe_params, sample(params_list, x, n_steps, device=dev),
+            allowed, real_feats)
+        return res
+
+    cfg = "dit_p14_d256_l4"
+    report = {"config": cfg, "train_steps": train_steps,
+              "batch_size": batch_size, "ema": ema, "n_steps": n_steps,
+              "n_samples": n_samples,
+              "subsets": [list(s) for s in gate.SUBSETS],
+              "probe_heldin": heldin}
+    report.update(score(n_samples, 0))
+    if baseline is not None:
+        with open(baseline) as f:
+            base = json.load(f)
+        if "diversity_mean" not in (base.get("composed") or {}):
+            raise ValueError(f"baseline {baseline} lacks the distributional "
+                             "statistics (diversity, fid)")
+        verdict = gate.judge(report, base, tol, div_frac, fid_slack,
+                             n_samples=n_samples)
+        if verdict.get("near_boundary") and not sanity:
+            n_esc = 4 * n_samples
+            first_pass = {"n_samples": n_samples, "solo": report["solo"],
+                          "composed": report["composed"], **verdict}
+            report.update(score(n_esc, 1000))
+            report["n_samples"] = n_esc
+            report["escalation"] = {"first_pass": first_pass,
+                                    "escalated_n": n_esc,
+                                    "second_seed_salt": 1000}
+            verdict = gate.judge(report, base, tol, div_frac, fid_slack,
+                                 n_samples=n_esc)
+        report.update(verdict)
+        report["baseline_config"] = base.get("config", str(baseline))
+    if out is not None:
+        os.makedirs(out, exist_ok=True)
+        suffix = "" if train_steps == 12000 else f"_s{train_steps}"
+        with open(os.path.join(out, f"quality_{cfg}{suffix}.json"), "w") as f:
+            json.dump(report, f, indent=2)
+    return report

@@ -1,27 +1,39 @@
-"""Diffusion Transformer (DiT), folded serving path.
+"""Diffusion Transformer (DiT): the training forward and the folded serving
+path.
 
-Port of ``composable_diffusion_models_tpu.models.dit.make_folded_apply``
-(``fold_ln=False``). In every sampler step the time input, and in
-composition every label, is batch-constant, so each block's six adaLN
-vectors (shift, scale, gate) x (attention, MLP) are per-step constants and
-fold into the adjacent GEMMs:
+Port of ``composable_diffusion_models_tpu.models.dit``, over the flax
+``DiT``'s parameter tree (converted with ``convert.from_flax``; both the
+fused-QKV and the stock multi-head attention layouts). Images are NHWC;
+``apply(params, x, t, *labels)`` as in the JAX package.
 
-  (LN(x) * (1+scale) + shift) @ W + b  ==  LN(x) @ (W * (1+scale)[:,None])
-                                           + (b + shift @ W)
-  x + gate * (h @ Wp + bp)             ==  x + h @ (Wp * gate[None,:])
-                                           + bp * gate
+* :meth:`DiT.apply` is the flax module's forward (``DiT.__call__``):
+  differentiable, the one the trainer runs. It computes in the
+  configuration's ``dtype`` at flax's cast sites: every Dense casts its
+  input, kernel and bias to the dtype (parameters stay float32), the
+  LayerNorms are float32 without affine (eps 1e-6) cast back, the GELU is
+  the tanh form, the unpatchify head is float32. ``pallas_attn=True`` runs
+  the fused-QKV attention core through the ``short_seq_attention`` kernel,
+  which has no backward: inference only, and it raises under autograd.
+* :func:`make_folded_apply` is the serving path. In every sampler step the
+  time input, and in composition every label, is batch-constant, so each
+  block's six adaLN vectors (shift, scale, gate) x (attention, MLP) are
+  per-step constants and fold into the adjacent GEMMs:
 
-The folded block then runs as one ``fused_dit_block`` kernel, or, with
-``fused_block=False``, as LayerNorm + GEMMs around the
-``short_seq_attention`` kernel. Same parameter tree as the flax ``DiT``
-(both the fused-QKV and the stock multi-head attention layouts), converted
-with ``convert.from_flax``. Images are NHWC; ``apply(params, x, t,
-*labels)`` as in the JAX package.
+    (LN(x) * (1+scale) + shift) @ W + b  ==  LN(x) @ (W * (1+scale)[:,None])
+                                             + (b + shift @ W)
+    x + gate * (h @ Wp + bp)             ==  x + h @ (Wp * gate[None,:])
+                                             + bp * gate
+
+  The folded block then runs as one ``fused_dit_block`` kernel, or, with
+  ``fused_block=False``, as LayerNorm + GEMMs around the
+  ``short_seq_attention`` kernel; ``fold_ln=True`` also folds the
+  LayerNorm's normalisation into the GEMMs' epilogue.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -35,11 +47,14 @@ from .embeddings import sinusoidal_embedding
 class DiT:
     """Configuration of a DiT (the flax module's fields).
 
-    ``qkv_fused`` selects the attention parameter layout that
-    ``convert.init_params`` builds (both layouts are served);
+    ``qkv_fused`` selects the attention parameter layout (the trainer's
+    forward runs the one it names; the folded path serves both);
     ``img_size`` fixes the number of tokens (the learned positional
     embedding ties a checkpoint to one image size). ``dtype`` is the compute
-    dtype; None computes in the input's dtype."""
+    dtype; None computes in float32 in :meth:`apply` (flax promotes to the
+    float32 parameters) and in the input's dtype in the folded path.
+    ``pallas_attn`` routes :meth:`apply`'s fused-QKV attention through the
+    ``short_seq_attention`` kernel (inference only)."""
 
     patch: int = 4
     dim: int = 256
@@ -51,10 +66,120 @@ class DiT:
     qkv_fused: bool = False
     img_size: int = 28
     dtype: Optional[torch.dtype] = None
+    pallas_attn: bool = False
 
     @property
     def n_tokens(self) -> int:
         return (self.img_size // self.patch) ** 2
+
+    def apply(self, params: Any, x: torch.Tensor, t, *labels) -> torch.Tensor:
+        """The flax ``DiT.__call__``: patchify (as a GEMM over HWIO-ordered
+        patches), learned positions, ``depth`` adaLN-Zero blocks, the final
+        adaLN and the float32 unpatchify head. ``t`` is a scalar or (B,);
+        each label (B,) or batch-1 integer ids. Differentiable."""
+        p = params["params"]
+        b, hh, ww, cin = x.shape
+        patch, d = self.patch, self.dim
+        if hh % patch or ww % patch:
+            raise ValueError(f"img {hh}x{ww} not divisible by patch {patch}")
+        gh, gw = hh // patch, ww // patch
+        n_tok = gh * gw
+        dt = self.dtype
+
+        t = torch.as_tensor(t, device=x.device)
+        if t.dim() == 0:
+            t = t[None]  # a batch-constant scalar t, as the samplers pass
+        te = p["TimeEmbedding_0"]
+        c = _dense(F.silu(_dense(sinusoidal_embedding(t, d), te["Dense_0"],
+                                 dt)), te["Dense_1"], dt)
+        if len(labels) != len(self.num_classes):
+            raise ValueError(f"model takes {len(self.num_classes)} label "
+                             f"slots, got {len(labels)}")
+        for i, lab in enumerate(labels):
+            emb = p[f"label_emb_{i}"]["embedding"]
+            lab = torch.as_tensor(lab, device=x.device).long()
+            c = c + emb.to(dt or emb.dtype)[lab]
+
+        cdt = dt or torch.promote_types(x.dtype, p["patchify"]["kernel"].dtype)
+        xp = x.to(cdt).reshape(b, gh, patch, gw, patch, cin)
+        xp = xp.permute(0, 1, 3, 2, 4, 5).reshape(b, n_tok,
+                                                  patch * patch * cin)
+        w_pat = p["patchify"]["kernel"].reshape(patch * patch * cin, d)
+        tok = xp @ w_pat.to(cdt) + p["patchify"]["bias"].to(cdt)
+        tok = tok + p["pos_emb"].to(tok.dtype)
+
+        for i in range(self.depth):
+            tok = self._block(p[f"block_{i}"], tok, c)
+
+        shift, scale = _dense(F.silu(c), p["final_mod"], dt).chunk(2, dim=-1)
+        tok = _modulate(ln_f32(tok), shift, scale)
+        out = _dense(tok.float(), p["unpatchify"], torch.float32)
+        out = out.reshape(b, gh, gw, patch, patch, cin)
+        return out.permute(0, 1, 3, 2, 4, 5).reshape(b, hh, ww, cin)
+
+    def _block(self, bp, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """Pre-LN block with adaLN-Zero modulation (flax ``DiTBlock``)."""
+        dt = self.dtype
+        (sa_shift, sa_scale, sa_gate, m_shift, m_scale,
+         m_gate) = _dense(F.silu(c), bp["Dense_0"], dt).chunk(6, dim=-1)
+        h = _modulate(ln_f32(x), sa_shift, sa_scale)
+        h = self._attention(bp, h)
+        x = x + sa_gate[:, None, :] * h
+        h = _modulate(ln_f32(x), m_shift, m_scale)
+        h = F.gelu(_dense(h, bp["Dense_1"], dt), approximate="tanh")
+        h = _dense(h, bp["Dense_2"], dt)
+        return x + m_gate[:, None, :] * h
+
+    def _attention(self, bp, h: torch.Tensor) -> torch.Tensor:
+        """Self-attention over (B, T, D): the fused-QKV module (fp32 softmax
+        statistics, probabilities rounded to h's dtype) or flax's stock
+        multi-head attention (q scaled before the product, softmax in the
+        compute dtype)."""
+        dt = self.dtype
+        b, n, d = h.shape
+        nh = self.n_heads
+        hd = d // nh
+        if "FusedQKVAttention_0" in bp:
+            a = bp["FusedQKVAttention_0"]
+            qkv = _dense(h, a["qkv"], dt)
+            if self.pallas_attn:
+                if torch.is_grad_enabled() and qkv.requires_grad:
+                    raise RuntimeError(
+                        "pallas_attn=True is inference-only: the "
+                        "short_seq_attention kernel has no backward; train "
+                        "with pallas_attn=False")
+                out = short_seq_attention(qkv, nh)
+            else:
+                q, k, v = qkv.reshape(b, n, 3, nh, hd).unbind(2)
+                s = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.sqrt(
+                    torch.tensor(float(hd), dtype=h.dtype))
+                w = torch.softmax(s.float(), dim=-1).to(h.dtype)
+                out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, n, d)
+            return _dense(out, a["proj"], dt)
+        if self.pallas_attn:
+            raise ValueError("pallas_attn needs the fused-QKV layout "
+                             "(qkv_fused=True)")
+        a = bp["MultiHeadDotProductAttention_0"]
+        q, k, v = (_dense(h, {"kernel": a[name]["kernel"].reshape(d, d),
+                              "bias": a[name]["bias"].reshape(d)}, dt)
+                   .reshape(b, n, nh, hd) for name in ("query", "key", "value"))
+        q = q / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(q.dtype)
+        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, n, d)
+        return _dense(out, {"kernel": a["out"]["kernel"].reshape(d, d),
+                            "bias": a["out"]["bias"]}, dt)
+
+
+def _dense(v: torch.Tensor, dp, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """flax ``nn.Dense``: input, kernel and bias cast to ``dtype`` (None:
+    their promoted type), the bias added to the rounded product."""
+    dt = dtype or torch.promote_types(v.dtype, dp["kernel"].dtype)
+    return v.to(dt) @ dp["kernel"].to(dt) + dp["bias"].to(dt)
+
+
+def _modulate(x: torch.Tensor, shift: torch.Tensor,
+              scale: torch.Tensor) -> torch.Tensor:
+    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
 def _attn_kernels(bp, dim: int):
@@ -86,14 +211,20 @@ def _batch1(name: str, arr) -> torch.Tensor:
     return arr
 
 
-def make_folded_apply(model: DiT, fused_block: bool = True):
+def make_folded_apply(model: DiT, fused_block: bool = True,
+                      fold_ln: bool = False):
     """``apply(params, x, t, *labels)`` computing the DiT forward with the
     per-step adaLN fold; t and every label must be batch-size 1.
 
     ``fused_block=True`` runs each whole block as the ``fused_dit_block``
     kernel; ``False`` runs LayerNorm and the GEMMs in PyTorch around the
-    ``short_seq_attention`` kernel. On CPU tensors both kernels take their
-    plain versions."""
+    ``short_seq_attention`` kernel. ``fold_ln=True`` (which takes the second
+    route whatever ``fused_block`` says, as in the JAX package) also folds
+    the LayerNorm's normalisation into the GEMM epilogue: with per-row
+    float32 statistics (mu, sigma) and the column sums s = 1^T W',
+    LN(x) @ W' + b' == (x @ W' - mu * s) / sigma + b', the product taken on
+    the raw residual stream with float32 accumulation. On CPU tensors both
+    kernels take their plain versions."""
 
     def apply(params: Any, x: torch.Tensor, t, *labels) -> torch.Tensor:
         p = params["params"]
@@ -105,14 +236,11 @@ def make_folded_apply(model: DiT, fused_block: bool = True):
         n_tok = gh * gw
         cdt = model.dtype or x.dtype
 
-        def dense(v, dp, dt=cdt):
-            return v.to(dt) @ dp["kernel"].to(dt) + dp["bias"].to(dt)
-
         # conditioning vector (1, D): time + summed batch-constant labels
         t1 = _batch1("t", t).to(x.device)
         te = p["TimeEmbedding_0"]
-        c = dense(F.silu(dense(sinusoidal_embedding(t1, d), te["Dense_0"])),
-                  te["Dense_1"])
+        c = _dense(F.silu(_dense(sinusoidal_embedding(t1, d), te["Dense_0"],
+                                 cdt)), te["Dense_1"], cdt)
         if model.num_classes and len(labels) != len(model.num_classes):
             raise ValueError(f"model takes {len(model.num_classes)} label "
                              f"slots, got {len(labels)}")
@@ -130,9 +258,22 @@ def make_folded_apply(model: DiT, fused_block: bool = True):
         tok = (xp @ w_pat.to(cdt) + p["patchify"]["bias"].to(cdt)
                + p["pos_emb"].to(cdt))
 
+        def ln_gemm(h, w_f, b_f):
+            """LN(h) @ w_f + b_f, the normalisation materialised or folded
+            into the epilogue (fold_ln)."""
+            if not fold_ln:
+                return ln_f32(h) @ w_f + b_f
+            hf = h.float()
+            mu = hf.mean(dim=-1, keepdim=True)
+            var = torch.clamp((hf * hf).mean(dim=-1, keepdim=True) - mu * mu,
+                              min=0.0)
+            g = hf @ w_f.float()  # products exact in float32, fp32 sums
+            y = (g - mu * w_f.float().sum(dim=0)) * torch.rsqrt(var + 1e-6)
+            return y.to(h.dtype) + b_f
+
         for i in range(model.depth):
             bp = p[f"block_{i}"]
-            mod = dense(sc, bp["Dense_0"])[0]  # (6D,) per-step constants
+            mod = _dense(sc, bp["Dense_0"], cdt)[0]  # (6D,) per-step consts
             (sa_shift, sa_scale, sa_gate,
              m_shift, m_scale, m_gate) = mod.chunk(6)
             # the bias correction uses the unfolded weight, in cdt
@@ -147,18 +288,18 @@ def make_folded_apply(model: DiT, fused_block: bool = True):
             b1_f = b1 + m_shift @ w1
             w2_f, b2_f = w2 * m_gate[None, :], b2 * m_gate
 
-            if fused_block:
+            if fused_block and not fold_ln:
                 tok = fused_dit_block(tok, w_qkv_f, b_qkv_f, w_pr_f, b_pr_f,
                                       w1_f, b1_f, w2_f, b2_f, model.n_heads)
                 continue
-            qkv = ln_f32(tok) @ w_qkv_f + b_qkv_f
+            qkv = ln_gemm(tok, w_qkv_f, b_qkv_f)
             o = short_seq_attention(qkv, model.n_heads)
             tok = tok + (o @ w_pr_f + b_pr_f)
-            h = F.gelu(ln_f32(tok) @ w1_f + b1_f, approximate="tanh")
+            h = F.gelu(ln_gemm(tok, w1_f, b1_f), approximate="tanh")
             tok = tok + (h @ w2_f + b2_f)
 
         # final adaLN folded into the fp32 unpatchify head
-        fmod = dense(sc, p["final_mod"])[0].float()
+        fmod = _dense(sc, p["final_mod"], cdt)[0].float()
         f_shift, f_scale = fmod.chunk(2)
         w_u = p["unpatchify"]["kernel"].float()
         out = (ln_f32(tok).float() @ (w_u * (1.0 + f_scale)[:, None])

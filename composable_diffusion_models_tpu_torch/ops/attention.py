@@ -15,6 +15,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ._build import library
 from .kernels import _DTYPE_CODE, _ptr, _stream_ptr
@@ -91,6 +92,19 @@ def _row_strides(name: str, t: torch.Tensor) -> tuple:
     return tuple(t.stride(dim) for dim in range(3))
 
 
+def flash_head_dim(d: int) -> int:
+    """The head width the kernel runs a head of width ``d`` at: the next of
+    (16, 32, 64, 128), the wrapper padding q, k and v with zero columns up
+    to it (zero columns add nothing to q k^T, and the output's extra
+    columns are dropped). Raises for D > 128, which the kernel does not
+    take (the TPU kernel pads any D to a multiple of 128)."""
+    for width in _HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"flash_attention: head width D={d} > {_HEAD_DIMS[-1]} "
+                     f"is not supported by the kernel")
+
+
 def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v over q (B, H, Nq, D) and k, v (B, H, Nk, D),
     any Nq and Nk >= 1; ``scale`` defaults to 1 / sqrt(D). float32 scores,
@@ -99,11 +113,14 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     transposed to (B, H, N, D) gives an output that transposes back
     without a copy).
 
-    Kernel limits: float32 or bfloat16, D in (16, 32, 64, 128); strided
-    views are read through their strides (last axis dense, the other
-    strides multiples of 4 elements, 16-byte aligned), never as if
-    contiguous. :func:`flash_route` picks the kernel route from the
-    dtype, H, Nk, D and the strides."""
+    Kernel limits: float32 or bfloat16, D <= 128 (checked on every device;
+    a D other than 16, 32, 64 or 128 runs padded with zero columns to the
+    next of them, :func:`flash_head_dim`, the scale still 1 / sqrt(D), and
+    its result comes back in a new tensor with q's layout); strided views
+    are read through their strides (last axis dense, the other strides
+    multiples of 4 elements, 16-byte aligned), never as if contiguous.
+    :func:`flash_route` picks the kernel route from the dtype, H, Nk, the
+    padded D and the strides."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name}: expected (B, H, N, D), got "
@@ -125,10 +142,13 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
         raise ValueError("flash_attention needs at least one key")
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
+    width = flash_head_dim(d)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale)
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: D={d} not in {_HEAD_DIMS}")
+    if width != d:
+        out = flash_attention(*(F.pad(t, (0, width - d)) for t in (q, k, v)),
+                              scale=scale)
+        return torch.empty_like(q).copy_(out[..., :d])
     out = torch.empty_like(q)  # q's strides when q is dense
     if q.numel() == 0:
         return out

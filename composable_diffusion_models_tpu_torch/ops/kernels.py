@@ -320,18 +320,26 @@ def _gn_fn():
     return fn
 
 
-def _gn_launch(name: str, parts, scale, bias, groups: int, eps: float):
-    """Checks the kernel's limits on CUDA ``parts`` ((B, H, W, C_p), one
-    dtype, each contiguous) and launches it once for all of them. Returns
-    the outputs, one per part."""
-    x = parts[0]
-    b, h, w, _ = x.shape
-    vec = 16 // x.element_size()
-    chans = [p.shape[-1] for p in parts]
-    for c in chans:
+def _gn_channel_check(name: str, parts) -> None:
+    """The kernel's channel limits, checked on every device so that the
+    CPU refuses what the card refuses: each part's C a multiple of 16
+    bytes of elements and at most 256 such vectors."""
+    vec = 16 // parts[0].element_size()
+    for p in parts:
+        c = p.shape[-1]
         if c % vec or c // vec > _GN_THREADS:
             raise ValueError(f"{name}: C={c} must be a multiple of {vec} "
-                             f"and at most {vec * _GN_THREADS} for {x.dtype}")
+                             f"and at most {vec * _GN_THREADS} for "
+                             f"{p.dtype}")
+
+
+def _gn_launch(name: str, parts, scale, bias, groups: int, eps: float):
+    """Launches the kernel once for CUDA ``parts`` ((B, H, W, C_p), one
+    dtype, each contiguous, within :func:`_gn_channel_check`'s limits).
+    Returns the outputs, one per part."""
+    x = parts[0]
+    b, h, w, _ = x.shape
+    chans = [p.shape[-1] for p in parts]
     outs = [torch.empty_like(p) for p in parts]
     if x.numel() == 0:
         return outs
@@ -358,15 +366,17 @@ def groupnorm_silu(x, scale, bias, groups: int = 8,
     XLA path clamps, as here), eps inside the rsqrt, ``scale`` and ``bias``
     (C,) float32, result in x's dtype.
 
-    Kernel limits: float32 or bfloat16; x contiguous as (B, H, W, C), that
-    is C fastest in memory (a permuted NCHW view raises: the kernel reads
-    ``data_ptr()`` as (B, HW, C)); C a multiple of 16 bytes of elements
-    (4 float32, 8 bfloat16) and at most 256 such vectors."""
+    Kernel limits, checked on every device: float32 or bfloat16; x
+    contiguous as (B, H, W, C), that is C fastest in memory (a permuted
+    NCHW view raises: the kernel reads ``data_ptr()`` as (B, HW, C)); C a
+    multiple of 16 bytes of elements (4 float32, 8 bfloat16) and at most
+    256 such vectors."""
     _gn_check(x, scale, bias, groups)
     if not x.is_contiguous():
         raise ValueError(
             f"x must be contiguous as (B, H, W, C) with C fastest; got "
             f"strides {x.stride()} for shape {tuple(x.shape)}")
+    _gn_channel_check("groupnorm_silu", (x,))
     if x.device.type == "cpu":
         return groupnorm_silu_ref(x, scale, bias, groups, eps)
     out, = _gn_launch("groupnorm_silu", (x,), scale, bias, groups, eps)
@@ -423,10 +433,10 @@ def groupnorm_silu_split(parts, scale, bias, groups: int = 8,
     there). CUDA parts go through the ``groupnorm_silu`` kernel in one
     launch; CPU parts through :func:`groupnorm_silu_split_ref`.
 
-    Kernel limits: at most two parts, all float32 or all bfloat16, on one
-    device, each contiguous as (B, H, W, C_p) with the same B, H and W;
-    every C_p a multiple of 16 bytes of elements and at most 256 such
-    vectors."""
+    Kernel limits, checked on every device: at most two parts, all float32
+    or all bfloat16, on one device, each contiguous as (B, H, W, C_p) with
+    the same B, H and W; every C_p a multiple of 16 bytes of elements and
+    at most 256 such vectors."""
     parts = tuple(parts)
     if not 1 <= len(parts) <= 2:
         raise ValueError(f"groupnorm_silu_split takes one or two parts, got "
@@ -456,6 +466,7 @@ def groupnorm_silu_split(parts, scale, bias, groups: int = 8,
         raise ValueError(f"groups={groups} does not divide C={c}")
     _check("scale", scale, (c,), torch.float32, x.device)
     _check("bias", bias, (c,), torch.float32, x.device)
+    _gn_channel_check("groupnorm_silu_split", parts)
     if x.device.type == "cpu":
         return groupnorm_silu_split_ref(parts, scale, bias, groups, eps)
     outs = _gn_launch("groupnorm_silu_split", parts, scale, bias, groups, eps)

@@ -1,7 +1,7 @@
 """Reverse-time integrators over a prediction closure, and the CFG closure.
 
 Port of ``composable_diffusion_models_tpu.samplers``: ``ddim`` (eta = 0, eps
-prediction, linear spacing, the x0 clamp gated by alpha),
+prediction, linear or Karras spacing, the x0 clamp gated by alpha),
 ``euler_maruyama`` / ``euler_maruyama_traj``, ``prob_flow_ode``,
 ``ito_kappa_ode``, ``superposition_2d`` and ``make_cfg_eps_fn``. Each JAX
 ``lax.scan`` over a precomputed table becomes a Python loop; the tables stay
@@ -43,7 +43,7 @@ def ddim(eps_fn: EpsFn, schedule: VPSchedule, x_init: torch.Tensor,
 
     ``eps_fn(x, t)`` receives a 0-d float32 ``t`` on x's device. Still to
     port, and raising until then: the stochastic form (eta > 0), x0 and v
-    prediction, Karras spacing and the Langevin corrector."""
+    prediction and the Langevin corrector."""
     if predict not in ("eps", "x0", "v"):
         raise ValueError(f"predict must be 'eps', 'x0' or 'v', "
                          f"got {predict!r}")

@@ -563,3 +563,47 @@ def test_flash_wgmma_split_arithmetic(d):
     assert float((got16 - ref16).abs().max()) <= 4 * 2.0 ** -8 * bar
     qs = q.float() * scale
     assert bool((qs - qs.to(torch.bfloat16).float() == 0).all()) == (d == 64)
+
+
+# ------------------------------------------- limits shared by CPU and card
+def test_flash_head_dim_pads_to_the_kernel_widths():
+    """The pure helper behind the card's padding: the next of 16, 32, 64
+    and 128; wider heads raise."""
+    widths = {d: attention.flash_head_dim(d) for d in range(1, 129)}
+    assert {widths[d] for d in range(1, 17)} == {16}
+    assert {widths[d] for d in range(17, 33)} == {32}
+    assert {widths[d] for d in range(33, 65)} == {64}
+    assert {widths[d] for d in range(65, 129)} == {128}
+    with pytest.raises(ValueError, match="D=129"):
+        attention.flash_head_dim(129)
+
+
+@pytest.mark.parametrize("d", [8, 24, 100, 160])
+def test_flash_attention_cpu_takes_what_the_card_takes(d):
+    """Any D up to 128 gives the plain version on the CPU (the card pads
+    it); a D the card refuses, the CPU refuses too."""
+    q, k, v = (torch.randn(2, 2, n, d) for n in (5, 3, 3))
+    if d > 128:
+        with pytest.raises(ValueError, match="D=160"):
+            attention.flash_attention(q, k, v)
+        return
+    torch.testing.assert_close(attention.flash_attention(q, k, v),
+                               attention.flash_attention_ref(q, k, v),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 6),
+                                     (torch.bfloat16, 12),
+                                     (torch.float32, 1028),
+                                     (torch.bfloat16, 2056)])
+def test_groupnorm_cpu_refuses_what_the_card_refuses(dtype, c):
+    """C must be a multiple of 16 bytes of elements and at most 256 such
+    vectors: checked before the CPU branch, for both wrappers."""
+    x = torch.zeros(2, 2, 2, c, dtype=dtype)
+    scale, bias = torch.ones(c), torch.zeros(c)
+    with pytest.raises(ValueError, match=f"C={c}"):
+        kernels.groupnorm_silu(x, scale, bias, 2)
+    part = torch.zeros(2, 2, 2, 16, dtype=dtype)
+    with pytest.raises(ValueError, match=f"C={c}"):
+        kernels.groupnorm_silu_split([part, x], torch.ones(16 + c),
+                                     torch.zeros(16 + c), 2)
