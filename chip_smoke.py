@@ -67,7 +67,34 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     launch a block) against its einsum attention; and the gate's numbers
     against the committed 48k-step PASS, printed as those of an
     under-trained run (a PASS is not a condition);
-11. one ``kernels`` JSON line, then the result line.
+11. SUPERDIFF (``entry.sample_superdiff``): two ``GUIDED_UNET`` experts (the
+    ``colored_mnist_guided`` preset's model), 28 x 28 x 3, batch 64,
+    float32, per-expert labels; OR and the rigorous AND at the preset's
+    1000 DDPM timesteps, the AND heuristic, FIXED (0.7, 0.3), AVG and the
+    rigorous OR at 100 (a cut for time);
+12. layout (``entry.sample_layout``): the same two experts, a circular
+    mask, batch 64, 100 timesteps (a cut for time);
+13. the bbox composition (``entry.sample_ancestral``): three
+    ``SHAPES_UNET`` experts, 64 x 64 x 3, float32, weights (1, 1, 1), the
+    ``shapes_bbox`` preset's 500 timesteps, batch 4 (the script's default)
+    and one timed run at batch 64;
+14. gray + color DDIM (``entry.sample_gray_color``): a 1-channel and a
+    3-channel ``unet64``, 64 x 64, batch 128, float32, the ``shapes_ddim``
+    preset's 200 steps, ``op="avg"`` (white) and ``op="proj"``
+    (luma_norm);
+15. the DDIM family on path A's two bf16 experts, batch 128, 20 steps
+    each: eta = 1, x0 and v prediction, one corrector step below t = 0.5,
+    ``dpm_solver_pp_2m`` (logsnr).
+    Every path of 11-15: finite output, the exact ``groupnorm_silu`` and
+    ``groupnorm_silu_split`` launches (8 and 2 per UNet forward), images/s,
+    ``fused_gn=False`` launching neither, the kernel path against the plain
+    path on the same replayed noise (OR and the rigorous AND also kappa at
+    the last step, and beside it the plain path against itself with one
+    more rounding per GroupNorm element), a short profile, and a warm call
+    of a few steps under ``torch.cuda.set_sync_debug_mode("error")``;
+    phase 3 holds ``groupnorm_silu`` and its two-part form at these paths'
+    shapes;
+16. one ``kernels`` JSON line, then the result line.
 
 Exits with code 2 and prints no result where there is no CUDA card.
 """
@@ -177,6 +204,27 @@ FA_PAD_SHAPE = (4, 4, 256, 77)
 # program and the gate's scoring run at the gate's 256 samples, 50 steps
 TRAIN_STEPS, TRAIN_BATCH, PROBE_STEPS, GATE_SAMPLES = 500, 256, 500, 256
 PROFILE_TRAIN_STEPS = 20
+# discrete-DDPM paths: colored_mnist_guided (batch 64 of 28 x 28 x 3, 1000
+# timesteps; SD_CUT for the cases cut for time), shapes_bbox (64 x 64 x 3,
+# 500 timesteps, batch 4 and a timed batch 64); the gray + color DDIM of
+# shapes_ddim (batch 128, 200 steps); the DDIM family on path A's experts
+SD_BATCH, SD_T, SD_CUT = 64, 1000, 100
+BBOX_BATCH, BBOX_BATCH_TIMED, BBOX_T = 4, 64, 500
+GC_BATCH, GC_STEPS, FAM_STEPS = 128, 200, 20
+PROFILE_STEPS, UNFUSED_STEPS = 5, 20
+# groupnorm_silu at those paths' shapes (float32): the guided UNet's three
+# levels at batch 64, two and three experts' rows at once, the bbox
+# experts' levels at batch 4 and the timed batch 64 (batch 128 at 64 x 64
+# is GN_MAIN); the two-part form at their up blocks
+GN_DDPM_SHAPES = [(SD_BATCH, 28, 28, 64), (SD_BATCH, 14, 14, 128),
+                  (SD_BATCH, 7, 7, 256), (2 * SD_BATCH, 28, 28, 64),
+                  (3 * SD_BATCH, 28, 28, 64), (BBOX_BATCH, 64, 64, 64),
+                  (BBOX_BATCH, 32, 32, 128), (BBOX_BATCH, 16, 16, 256),
+                  (BBOX_BATCH_TIMED, 64, 64, 64)]
+GN_DDPM_SPLIT = [((SD_BATCH, 14, 14), (256, 128)),
+                 ((SD_BATCH, 28, 28), (128, 64)),
+                 ((BBOX_BATCH, 32, 32), (256, 128)),
+                 ((BBOX_BATCH, 64, 64), (128, 64))]
 
 
 def log(msg: str) -> None:
@@ -1223,11 +1271,361 @@ def training_path(card, entry, kernels, attention) -> int:
     return served["fused_dit_block"]
 
 
+def check_ddpm_gn_shapes(kernels) -> list:
+    """Phase 3 for groupnorm_silu and its two-part form at the shapes of
+    the discrete-DDPM paths (float32, as they compute), each against its
+    plain version and timed. Returns their rows for the JSON line."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(11)
+    rows = []
+    for shape in GN_DDPM_SHAPES + GN_DDPM_SPLIT:
+        split = len(shape) == 2
+        bhw, chans = (shape if split else (shape[:3], (shape[3],)))
+        c = sum(chans)
+        parts = [(torch.randn(*bhw, cc, generator=gen) * 2 + 0.5).cuda()
+                 for cc in chans]
+        scale = (1 + 0.1 * torch.randn(c, generator=gen)).cuda()
+        bias = (0.1 * torch.randn(c, generator=gen)).cuda()
+        whole = torch.cat(parts, -1) if split else parts[0]
+        if split:
+            def call():
+                return kernels.groupnorm_silu_split(parts, scale, bias, 8)
+
+            def plain():
+                return kernels.groupnorm_silu_split_ref(parts, scale, bias, 8)
+            got = torch.cat(call(), -1)
+        else:
+            def call():
+                return kernels.groupnorm_silu(parts[0], scale, bias, 8)
+
+            def plain():
+                return kernels.groupnorm_silu_ref(parts[0], scale, bias, 8)
+            got = call()
+        torch.cuda.synchronize()
+        ref = kernels.groupnorm_silu_ref(whole, scale, bias, 8)
+        err, tol = max_err(got, ref), tolerance(torch.float32, ref, 1e-5)
+        ms, dev, plain_ms = time_ms(call), device_ms(call), time_ms(plain)
+        lib = lib_dev = None
+        if not split:
+            x_nchw = parts[0].permute(0, 3, 1, 2)
+
+            def library():
+                return F.silu(F.group_norm(x_nchw, 8, scale, bias, 1e-5))
+            lib, lib_dev = time_ms(library), device_ms(library, match="")
+        nbytes = 2 * whole.numel() * 4 + 2 * c * 4
+        bms, by = bound_ms(12 * whole.numel(), nbytes, torch.float32)
+        name = "groupnorm_silu_split" if split else "groupnorm_silu"
+        desc = f"{bhw} + {chans}" if split else str(shape)
+        log(f"{name} float32 {desc} G=8 (DDPM paths): max_abs_err={err:.3e} "
+            f"tol={tol:.3e}; kernel {ms:.4f} ms ({dev:.4f} ms on the device "
+            f"in a trace), plain {plain_ms:.4f} ms, "
+            + (f"F.group_norm + F.silu {lib:.4f} ms ({lib_dev:.4f} ms on the "
+               f"device), " if lib else "")
+            + f"bound {bms:.4f} ms ({by}; {nbytes / 1e6:.2f} MB)")
+        if not err <= tol:
+            fail(f"{name} disagrees with its plain version at {desc}")
+        rows.append(dict(name=name, shape=desc, dtype="float32",
+                         max_abs_err=err, ms=ms, dev_ms=dev,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib, library_dev_ms=lib_dev))
+    return rows
+
+
+def sync_free(label: str, fn) -> None:
+    """A warm call of ``fn`` under ``set_sync_debug_mode("error")``: any
+    call that makes the host wait for the card raises there."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"  {label}: a warm call under set_sync_debug_mode('error') made "
+        f"no host sync; output finite {bool(torch.isfinite(out).all())}")
+
+
+@contextlib.contextmanager
+def last_output(module, name: str):
+    """Records the last value ``module.name`` returned while patched: the
+    sampler's kappa at its last step."""
+    box, orig = {}, getattr(module, name)
+
+    def record(*args, **kw):
+        box["out"] = orig(*args, **kw)
+        return box["out"]
+    with mock.patch.object(module, name, record):
+        yield box
+
+
+def k4_path(card, label: str, run, forwards: int, batch: int, steps: int,
+            shape: tuple, kernels, attention, unet, compose=None,
+            kappa_fn: str = None, bf16: bool = False) -> dict:
+    """One UNet path of phases 11-15: ``run(**kw)`` samples at full depth
+    with replayed draws (``fused_gn=``; ``n=`` for a shorter run with
+    seeded draws). The kernel run (counts from 0, timed), exact launches,
+    fused_gn=False (none), the plain path on the same draws: x and, where
+    ``kappa_fn`` names the function that returns it, kappa at the last
+    step. bf16 is held on the mean (0.05). float32 is held per element
+    (1e-3 of the scale, and kappa to 1e-3) unless the path itself is
+    sensitive: the plain path against itself with x * a + b rounded twice
+    (one more rounding per GroupNorm element), run beside it, moving by
+    more than a tenth of that bar. Random-weight experts over hundreds of
+    steps grow a rounding that far (and turn it into flips of the heuristic
+    AND's kappa): there the mean is held (1e-3 of the scale) and the
+    largest differences are printed beside the path's own. A short profile
+    closes. Returns the kernel run's launches."""
+    def kappa_of():
+        return (last_output(compose, kappa_fn) if kappa_fn
+                else contextlib.nullcontext({}))
+    run(n=2)  # warm-up: cuDNN's choice of algorithms, caches
+    reset_launches(kernels, attention)
+    with kappa_of() as box:
+        out, sec = timed(run)
+    counts = read_launches(kernels, attention)
+    log(f"{label}: {tuple(out.shape)} in {sec:.3f} s = {batch / sec:.1f} "
+        f"images/s, {sec / steps * 1e3:.3f} ms/step ({card}); launches "
+        f"{counts}")
+    if not bool(torch.isfinite(out).all()):
+        fail(f"{label}: output is not finite")
+    if tuple(out.shape) != shape:
+        fail(f"{label}: output has the wrong shape")
+    want = dict.fromkeys(counts, 0)
+    want.update(groupnorm_silu=8 * forwards,
+                groupnorm_silu_split=2 * forwards)
+    if counts != want:
+        fail(f"{label}: launches {counts}, expected {want}")
+    cut = min(steps, UNFUSED_STEPS)
+    reset_launches(kernels, attention)
+    _, sec_u = timed(lambda: run(n=cut, fused_gn=False))
+    unfused = read_launches(kernels, attention)
+    if any(unfused.values()):
+        fail(f"{label}: fused_gn=False launched a kernel: {unfused}")
+    with plain_groupnorm(unet, kernels), kappa_of() as box_p:
+        ref, sec_p = timed(run)
+    scale = max(1.0, float(ref.abs().max()))
+    diff = (out - ref).abs()
+    log(f"  fused_gn=False ({cut} steps): {sec_u / cut * 1e3:.3f} ms/step; "
+        f"plain path {batch / sec_p:.1f} images/s; kernel path vs plain path "
+        f"after {steps} steps: max |diff| {float(diff.max()):.3e}, mean "
+        f"{float(diff.mean()):.3e} at scale {scale:.4g}; |x| >= 1 at "
+        f"{float((out.abs() >= 1).float().mean()):.3f} of the elements")
+    if bf16:
+        if not float(diff.mean()) <= 0.05:
+            fail(f"{label}: the bf16 kernel path drifts from the plain path")
+    else:
+        with mock.patch.object(unet, "groupnorm_silu",
+                               gn_rounded_twice(kernels)), \
+                mock.patch.object(unet, "groupnorm_silu_split",
+                                  kernels.groupnorm_silu_split_ref), \
+                kappa_of() as box_b:
+            ref_b = run()
+        d_b = (ref - ref_b).abs()
+        sensitive = float(d_b.max()) > 1e-4 * scale
+        log(f"  the plain path against itself with x * a + b rounded twice:"
+            f" max |diff| {float(d_b.max()):.3e}, mean "
+            f"{float(d_b.mean()):.3e}; kernel path vs that one: max "
+            f"{max_err(out, ref_b):.3e}; held "
+            + ("on the mean (the path is sensitive)" if sensitive
+               else "per element") + ", bar 1e-3 of the scale")
+        stat = diff.mean() if sensitive else diff.max()
+        if not float(stat) <= 1e-3 * scale:
+            fail(f"{label}: the kernel path disagrees with the plain path")
+        if kappa_fn:
+            k_diff = (box["out"] - box_p["out"]).abs()
+            k_b = (box_p["out"] - box_b["out"]).abs()
+            log(f"  kappa at the last step, kernel vs plain: max |diff| "
+                f"{float(k_diff.max()):.3e}, {int((k_diff > 1e-3).sum())} of "
+                f"{k_diff.numel()} entries beyond 1e-3; plain vs plain "
+                f"rounded twice: max {float(k_b.max()):.3e}, "
+                f"{int((k_b > 1e-3).sum())} beyond 1e-3"
+                + ("" if not sensitive else " (printed, not held: the path "
+                   "is sensitive)"))
+            if not sensitive and not float(k_diff.max()) <= 1e-3:
+                fail(f"{label}: kappa of the kernel path disagrees with the "
+                     f"plain path's")
+    prof = min(steps, PROFILE_STEPS)
+    profile_steps(f"{label}, {prof} steps", lambda: run(n=prof), prof)
+    return counts
+
+
+def ddpm_paths(card, convert, entry, unet, kernels, attention,
+               compose) -> dict:
+    """Phases 11-14. Returns the launches of each path's kernel run."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    launches = {}
+
+    def draws(shape, n, per_step=()):
+        return torch.randn((n,) + per_step + shape, generator=gen,
+                           device="cuda")
+
+    # 11. SUPERDIFF on two guided experts, float32
+    params = entry.load_unets(
+        [convert.from_flax(convert.init_params(entry.GUIDED_UNET, seed=20 + i))
+         for i in range(entry.N_GUIDED_EXPERTS)], dtype=torch.float32)
+    img = (SD_BATCH, 28, 28, 3)
+    x = torch.randn(img, generator=gen, device="cuda")
+    # per-expert (digit, color); expert 0's color slot is the null token
+    labels = torch.tensor([[3, 10], [7, 2]], device="cuda")
+    noise1, noise2 = draws(img, SD_T), draws(img, SD_T, (2,))
+    cases = [("OR", False, SD_T, "or_softmax"),
+             ("AND", True, SD_T, "and_solve_k"),
+             ("AND", False, SD_CUT, "and_heuristic"),
+             ("FIXED", False, SD_CUT, None), ("AVG", False, SD_CUT, None),
+             ("OR", True, SD_CUT, "or_softmax")]
+    for op, rigorous, steps, kappa_fn in cases:
+        replay = (noise2 if rigorous and op == "AND" else noise1)[:steps]
+
+        def run(n=steps, op=op, rigorous=rigorous, replay=replay, **kw):
+            return entry.sample_superdiff(
+                params, x, labels, operation=op, rigorous_and=rigorous,
+                kappa=(0.7, 0.3), num_timesteps=n,
+                noise=replay if n == replay.shape[0] else None, **kw)
+
+        label = (f"SUPERDIFF {'rigorous ' if rigorous else ''}{op} "
+                 f"({entry.N_GUIDED_EXPERTS} guided experts, batch "
+                 f"{SD_BATCH}, {steps} timesteps"
+                 + ("" if steps == SD_T else
+                    f" (the preset's {SD_T} cut for time)") + ", float32)")
+        launches[f"superdiff_{'solve_' if rigorous else ''}{op.lower()}"] = \
+            k4_path(card, label, run, entry.N_GUIDED_EXPERTS * steps,
+                    SD_BATCH, steps, img, kernels, attention, unet, compose,
+                    kappa_fn)
+        sync_free(f"SUPERDIFF {'rigorous ' if rigorous else ''}{op}",
+                  lambda run=run: run(n=2))
+    del noise2
+
+    # 12. layout: background everywhere, the foreground in a circle
+    replay = noise1[:SD_CUT]
+
+    def run_layout(n=SD_CUT, **kw):
+        return entry.sample_layout(
+            params, x, num_timesteps=n,
+            noise=replay if n == SD_CUT else None, **kw)
+    launches["layout"] = k4_path(
+        card, f"layout (2 guided experts, a circular mask, batch {SD_BATCH}, "
+        f"{SD_CUT} timesteps (the preset's {SD_T} cut for time), float32)",
+        run_layout, 2 * SD_CUT, SD_BATCH, SD_CUT, img, kernels, attention,
+        unet)
+    sync_free("layout", lambda: run_layout(n=2))
+    del noise1, params
+
+    # 13. the bbox composition: shape, color and bbox experts
+    bbox = entry.load_unets(
+        [convert.from_flax(convert.init_params(entry.SHAPES_UNET, seed=30 + i))
+         for i in range(3)], dtype=torch.float32)
+    img = (BBOX_BATCH_TIMED, 64, 64, 3)
+    x_all = torch.randn(img, generator=gen, device="cuda")
+    lab_all = torch.randint(0, 3, (3, BBOX_BATCH_TIMED), generator=gen,
+                            device="cuda")
+    noise = draws(img, BBOX_T)
+
+    def run_bbox(n=BBOX_T, b=BBOX_BATCH, **kw):
+        return entry.sample_ancestral(
+            bbox, x_all[:b], lab_all[:, :b], num_timesteps=n,
+            noise=noise[:, :b] if n == BBOX_T else None, **kw)
+    launches["ancestral"] = k4_path(
+        card, f"bbox composition (3 experts, weights (1, 1, 1), batch "
+        f"{BBOX_BATCH}, {BBOX_T} timesteps, float32)", run_bbox, 3 * BBOX_T,
+        BBOX_BATCH, BBOX_T, (BBOX_BATCH, 64, 64, 3), kernels, attention, unet)
+    sync_free("ancestral", lambda: run_bbox(n=2))
+    run_bbox(n=2, b=BBOX_BATCH_TIMED)
+    reset_launches(kernels, attention)
+    out, sec = timed(lambda: run_bbox(b=BBOX_BATCH_TIMED))
+    counts = read_launches(kernels, attention)
+    log(f"  batch {BBOX_BATCH_TIMED}, {BBOX_T} timesteps: "
+        f"{BBOX_BATCH_TIMED / sec:.1f} images/s, "
+        f"{sec / BBOX_T * 1e3:.3f} ms/step ({card}); launches {counts}")
+    if not bool(torch.isfinite(out).all()) or \
+            counts["groupnorm_silu"] != 8 * 3 * BBOX_T or \
+            counts["groupnorm_silu_split"] != 2 * 3 * BBOX_T:
+        fail("the batch-64 bbox run is not finite or missed its launches")
+    profile_steps(f"bbox composition, batch {BBOX_BATCH_TIMED}, "
+                  f"{PROFILE_STEPS} steps", lambda: run_bbox(
+                      n=PROFILE_STEPS, b=BBOX_BATCH_TIMED), PROFILE_STEPS)
+    del noise, out
+
+    # 14. gray + color DDIM: a 1-channel shape expert beside a color one
+    shape_p, color_p = entry.load_unets(
+        [convert.from_flax(convert.init_params(m, seed=40 + i))
+         for i, m in enumerate((entry.GRAY_UNET, entry.SHAPES_UNET))],
+        dtype=torch.float32)
+    img = (GC_BATCH, 64, 64, 3)
+    x = torch.randn(img, generator=gen, device="cuda")
+    sl, cl = (torch.randint(0, 3, (GC_BATCH,), generator=gen, device="cuda")
+              for _ in range(2))
+    for op, protocol in (("avg", "white"), ("proj", "luma_norm")):
+        def run_gc(n=GC_STEPS, op=op, protocol=protocol, **kw):
+            return entry.sample_gray_color(shape_p, color_p, x, sl, cl,
+                                           op=op, gray_protocol=protocol,
+                                           n_steps=n, **kw)
+        launches[f"gray_color_{op}"] = k4_path(
+            card, f"gray + color DDIM, op {op} ({protocol}; batch "
+            f"{GC_BATCH}, 64 x 64, {GC_STEPS} steps, float32)", run_gc,
+            2 * GC_STEPS, GC_BATCH, GC_STEPS, img, kernels, attention, unet)
+        sync_free(f"gray + color DDIM, op {op}", lambda run=run_gc: run(n=2))
+    return launches
+
+
+def ddim_family(card, convert, entry, unet, kernels, attention, compose,
+                samplers) -> dict:
+    """Phase 15: the DDIM variants and DPM-Solver++(2M) on path A's two bf16
+    experts, as ``entry.sample_shapes`` builds its prediction."""
+    import dataclasses
+    from composable_diffusion_models_tpu_torch.experts import (ExpertStack,
+                                                               per_expert)
+    from composable_diffusion_models_tpu_torch.schedules import VPSchedule
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    params = entry.load_unets(
+        [convert.from_flax(convert.init_params(entry.SHAPES_UNET, seed=i))
+         for i in range(entry.N_SHAPES_EXPERTS)])
+    x = torch.randn(A_BATCH, 64, 64, 3, generator=gen, device="cuda")
+    labs = per_expert(torch.randint(0, 3, (entry.N_SHAPES_EXPERTS, A_BATCH),
+                                    generator=gen, device="cuda"))
+    w = compose.constant([1.0] * entry.N_SHAPES_EXPERTS, torch.float32,
+                         "cuda")
+    grid = VPSchedule().ddim_grid(FAM_STEPS)
+    gated_in = int((grid[1:] <= 0.5).sum())
+    variants = [
+        ("ddim eta=1", dict(eta=1.0, key=5), 0),
+        ("ddim predict=x0", dict(predict="x0"), 0),
+        ("ddim predict=v", dict(predict="v"), 0),
+        ("ddim, 1 corrector step at t <= 0.5",
+         dict(corrector_steps=1, corrector_t_max=0.5, key=6), gated_in),
+        ("dpm_solver_pp_2m (logsnr)", None, 0)]
+    launches = {}
+    for label, kw, extra in variants:
+        def run(n=FAM_STEPS, fused_gn=True, kw=kw):
+            model = dataclasses.replace(entry.SHAPES_UNET,
+                                        dtype=torch.bfloat16,
+                                        fused_gn=fused_gn)
+            stack = ExpertStack(model.apply, params)
+
+            def eps_fn(xx, t):
+                return compose.weighted(
+                    stack(xx.bfloat16(), t.bfloat16(), labs).float(), w)
+            with torch.inference_mode():
+                if kw is None:
+                    return samplers.dpm_solver_pp_2m(eps_fn, VPSchedule(), x,
+                                                     n)
+                return samplers.ddim(eps_fn, VPSchedule(), x, n, **kw)
+        # a short run's corrector count differs: only the full one counts
+        launches[label] = k4_path(
+            card, f"{label} (path A's 2 experts, batch {A_BATCH}, "
+            f"{FAM_STEPS} steps, bf16)", run,
+            entry.N_SHAPES_EXPERTS * (FAM_STEPS + extra), A_BATCH, FAM_STEPS,
+            (A_BATCH, 64, 64, 3), kernels, attention, unet, bf16=True)
+        sync_free(label, lambda run=run: run(n=2))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from composable_diffusion_models_tpu_torch import compose, convert, entry
+    from composable_diffusion_models_tpu_torch import (compose, convert, entry,
+                                                       samplers)
     from composable_diffusion_models_tpu_torch.models import dit, unet
     from composable_diffusion_models_tpu_torch.ops import (_build, attention,
                                                            kernels)
@@ -1249,6 +1647,7 @@ def main() -> int:
     rows = check_kernels(kernels)
     rows.update(check_unet_kernels(kernels, attention))
     rows.update(check_latent_kernels(kernels, compose))
+    ddpm_gn_rows = check_ddpm_gn_shapes(kernels)
 
     # 4. main path
     trees = [convert.from_flax(convert.init_params(entry.FLAGSHIP, seed=i))
@@ -1349,13 +1748,23 @@ def main() -> int:
     # 10. the training path, served through fused_dit_block
     training_path(card, entry, kernels, attention)
 
-    # 11. the kernels line, then the result line. launches: each kernel's
+    # 11-14. the discrete-DDPM paths and the gray + color DDIM; 15. the
+    # DDIM family
+    by_path = {"A": unet_launches["A"], "B": unet_launches["B"]}
+    by_path.update(ddpm_paths(card, convert, entry, unet, kernels, attention,
+                              compose))
+    by_path.update(ddim_family(card, convert, entry, unet, kernels,
+                               attention, compose, samplers))
+
+    # 16. the kernels line, then the result line. launches: each kernel's
     # count on the path that serves it (fused_dit_block: the DiT path;
     # short_seq_attention: fused_block=False; groupnorm_silu and its two-part
     # form groupnorm_silu_split (the same source; the JAX function it
     # carries is left to the compiler there): path A; flash_attention: path
     # B; blend_eps and matmul: the latent path under ddim); times at that
-    # path's shape and dtype
+    # path's shape and dtype. The two GroupNorm rows also carry their
+    # launches on every UNet path (phases 7, 8, 11-15) and their numbers at
+    # the DDPM paths' shapes
     src = "composable_diffusion_models_tpu_torch/csrc/"
     tpu = "composable_diffusion_models_tpu/ops/"
     line = {"kernels": [
@@ -1376,6 +1785,13 @@ def main() -> int:
             ("blend_eps", "blend_eps", "pallas_kernels.py:197",
              torch.float32),
             ("matmul", "matmul", "pallas_kernels.py:229", torch.float32))]}
+    for row in line["kernels"]:
+        if row["name"] in ("groupnorm_silu", "groupnorm_silu_split"):
+            row["launches_by_path"] = {p: c[row["name"]]
+                                       for p, c in by_path.items()}
+            row["ddpm_path_shapes"] = [
+                {k: v for k, v in r.items() if k != "name"}
+                for r in ddpm_gn_rows if r["name"] == row["name"]]
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,20 +4,50 @@ Port of ``composable_diffusion_models_tpu.compose``, whole: ``weighted``,
 ``kappa_ito`` / ``combine_kappa``, ``or_softmax``, ``and_heuristic``,
 ``and_solve`` / ``and_solve_k``, ``cfg``, ``resolve_occlusion`` /
 ``masked``, ``fixed`` and ``projected``. Plain functions on tensors, meant
-to sit inside a sampler's step.
+to sit inside a sampler's step: none of them waits on the card. Host
+numbers enter as Python scalars or through :func:`constant`, which copies a
+small host vector to the device once per process.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=256)
+def _constant(values: tuple, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):  # usable outside inference mode too
+        return torch.tensor(values, dtype=dtype).to(device)
+
+
+def constant(values: Sequence[float], dtype: torch.dtype,
+             device) -> torch.Tensor:
+    """``values`` (a flat sequence of host numbers) as a 1-D tensor of
+    ``dtype`` on ``device``, made once per (values, dtype, device) and
+    shared by every later call: a copy from the host at every sampler step
+    would make the host wait for the card each time. Read-only."""
+    return _constant(tuple(float(v) for v in values), dtype,
+                     torch.device(device))
+
+
+def _on_device(values, ref: torch.Tensor) -> torch.Tensor:
+    """``values`` (host numbers, or a tensor) as a tensor of ``ref``'s dtype
+    on ``ref``'s device; host numbers through :func:`constant`."""
+    if isinstance(values, torch.Tensor):
+        return values.to(device=ref.device, dtype=ref.dtype)
+    return constant(np.ravel(values).tolist(), ref.dtype,
+                    ref.device).reshape(np.shape(values))
 
 
 def _kexp(w, ref: torch.Tensor) -> torch.Tensor:
     """Broadcast per-expert (K,) or (K, B) weights against a (K, B, ...)
     stack."""
-    w = torch.as_tensor(w, dtype=ref.dtype, device=ref.device)
+    w = _on_device(w, ref)
     return w.reshape(tuple(w.shape) + (1,) * (ref.dim() - w.dim()))
 
 
@@ -63,15 +93,21 @@ def or_softmax(log_q: torch.Tensor, temp: float = 1.0,
 
     ``bias`` tilts the blend only when it is per-expert, shape (K,) or
     (K, 1): softmax is shift-invariant, so a scalar bias changes nothing,
-    and a non-zero one raises instead of being silently accepted."""
-    b = torch.as_tensor(bias, dtype=log_q.dtype, device=log_q.device)
-    if b.dim() == 0:
-        if float(b) != 0.0:
+    and a non-zero one raises instead of being silently accepted. A Python
+    or numpy scalar is checked on the host, before any tensor is made (a
+    0-d tensor is read, which waits for the card where it lies there); a
+    per-expert bias of host numbers is copied to the device once
+    (:func:`constant`)."""
+    if isinstance(bias, torch.Tensor) and bias.dim() == 0:
+        bias = float(bias)
+    if np.ndim(bias) == 0:
+        if float(bias) != 0.0:
             raise ValueError(
                 "or_softmax: a scalar bias is inert (softmax is "
                 "shift-invariant); pass a per-expert bias of shape (K,) "
                 "to tilt the blend, or 0.0")
         return torch.softmax(temp * log_q, dim=0)
+    b = _on_device(bias, log_q)
     if b.dim() == 1:
         b = b[:, None]                    # (K,) -> (K, 1), broadcast over B
     return torch.softmax(temp * log_q + b, dim=0)
@@ -82,11 +118,14 @@ def and_heuristic(log_q: torch.Tensor) -> torch.Tensor:
     return torch.softmax(-log_q, dim=0)
 
 
-def _row_bias(bias, k: int, ref: torch.Tensor) -> torch.Tensor:
+def _row_bias(bias, k: int, ref: torch.Tensor):
     """Bias of the K - 1 equal-density rows of the AND linear system: a
     scalar tilts every row; a per-expert (K,) bias enters as consecutive
-    differences bias[r + 1] - bias[r]."""
-    b = torch.as_tensor(bias, dtype=ref.dtype, device=ref.device)
+    differences bias[r + 1] - bias[r]. A host scalar stays a Python number
+    (added in ``ref``'s dtype, as a 0-d tensor of it was)."""
+    if not isinstance(bias, torch.Tensor) and np.ndim(bias) == 0:
+        return float(bias)
+    b = _on_device(bias, ref)
     if b.dim() == 0:
         return b
     if tuple(b.shape) == (k,):
@@ -129,11 +168,14 @@ def and_solve_k(a: torch.Tensor, b: torch.Tensor, bias=0.0) -> torch.Tensor:
     rhs = torch.cat([b[:, 1:] - b[:, :-1] + _row_bias(bias, k, b),
                      torch.ones((bsz, 1), dtype=b.dtype, device=b.device)],
                     dim=1)
-    # guard the solve itself: a singular matrix must not poison the batch
+    # guard the solve itself: a singular matrix must not poison the batch.
+    # solve_ex without its error check: the guarded matrices need none, and
+    # the check reads the factorisation's status back from the card
     safe = torch.linalg.det(mat).abs() > 1e-12
     eye = torch.eye(k, dtype=a.dtype, device=a.device).expand_as(mat)
-    kappa = torch.linalg.solve(torch.where(safe[:, None, None], mat, eye),
-                               rhs[..., None]).squeeze(-1)
+    kappa = torch.linalg.solve_ex(torch.where(safe[:, None, None], mat, eye),
+                                  rhs[..., None],
+                                  check_errors=False)[0].squeeze(-1)
     ok = safe & torch.isfinite(kappa).all(dim=1)
     kappa = torch.where(ok[:, None], kappa, 1.0 / k).clamp(0.0, 1.0)
     total = kappa.sum(dim=1, keepdim=True)
@@ -191,7 +233,7 @@ def projected(eps_full: torch.Tensor, eps_sub: torch.Tensor, weight=1.0,
     full-noise estimate, and the orthogonal complement stays with the
     full-space expert. weight = 1 replaces the projected component,
     weight > 1 over-steers as guidance."""
-    w = torch.as_tensor(proj, dtype=eps_full.dtype, device=eps_full.device)
+    w = _on_device(proj, eps_full)
     w = w / torch.sqrt((w * w).sum())
     p_full = (eps_full * w).sum(dim=-1, keepdim=True)
     return eps_full + weight * (eps_sub - p_full) * w

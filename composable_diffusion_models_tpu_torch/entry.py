@@ -23,6 +23,30 @@
   the presets compute; the K-expert blend of ``ddim`` and ``em`` runs
   through the ``blend_eps`` kernel and the PCA decode through ``matmul``.
 
+The discrete-DDPM composition paths, on ``DDPMSchedule`` with linear
+betas, float32 as their presets compute, every GroupNorm of their UNets
+through the ``groupnorm_silu`` kernel:
+
+* :func:`sample_superdiff`: K ``GUIDED_UNET`` experts (the
+  ``colored_mnist_guided`` preset's model: digit and color label slots with
+  the null token) composed by SUPERDIFF with the Ito density estimator (OR,
+  AND heuristic, FIXED, AVG) or the rigorous AND / OR of the K x K linear
+  system, 1000 timesteps. Counterpart of ``scripts/superdiff.py``.
+* :func:`sample_layout`: a background expert everywhere and a foreground
+  expert in a centred circle (``layout``). Counterpart of
+  ``scripts/layout_compose.py``.
+* :func:`sample_ancestral`: three class-conditional ``unet64`` experts
+  (shape, color, bbox) blended by ``compose.weighted`` under ancestral DDPM
+  at 500 timesteps. Counterpart of ``scripts/compose_bbox.py``'s sampler.
+
+And one more DDIM path:
+
+* :func:`sample_gray_color`: a 1-channel shape ``unet64`` that sees the gray
+  projection of the RGB state beside a 3-channel color ``unet64``, blended
+  by ``compose.weighted`` over the lifted gray prediction or by
+  ``compose.projected``, 200 DDIM steps in float32. Counterpart of
+  ``scripts/compose_images_ddim.py`` on the ``shapes_ddim`` preset.
+
 And the training path, the protocol of ``scripts/quality_gate_flagship.py``:
 
 * :func:`train_experts`: three ``dit_p14_d256_l4`` experts trained on the
@@ -44,13 +68,14 @@ import math
 import os
 from typing import Any, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
-from . import data, gate, resolve_device, samplers, train
+from . import compose, data, gate, resolve_device, samplers, train
 from . import eval as ceval
 from .compose import weighted
 from .convert import flax_init, param_shapes, unet_torch_layout
-from .experts import ExpertStack, per_expert
+from .experts import ExpertStack, gray_to_rgb, per_expert, rgb_to_gray
 from .models.dit import DiT, make_folded_apply
 from .models.mlp import ScoreMLP
 from .models.unet import UNet
@@ -58,7 +83,7 @@ from .ops import pca as pca_codec
 from .ops.kernels import blend_eps
 from .rng import Draws, fold_in
 from .samplers import ddim, make_cfg_eps_fn
-from .schedules import VPSchedule
+from .schedules import DDPMSchedule, VPSchedule
 
 FLAGSHIP = DiT(patch=14, dim=256, depth=4, n_heads=8, in_channels=1,
                qkv_fused=True, img_size=28)
@@ -75,6 +100,15 @@ N_SHAPES_EXPERTS = 2
 CFG_UNET = UNet(in_channels=3, base_dim=64, channel_mults=(1, 2, 4),
                 num_classes=(10, 3), null_token=True, cross_attn=True,
                 flash_attn=True)
+# the colored_mnist_guided preset's model: digit and color label slots, each
+# with the null token, added into the time embedding (no cross-attention)
+GUIDED_UNET = UNet(in_channels=3, base_dim=64, channel_mults=(1, 2, 4),
+                   num_classes=(10, 10), null_token=True)
+N_GUIDED_EXPERTS = 2
+# scripts/compose_images_ddim.py's shape expert: the unet64 on one gray
+# channel (its color expert is SHAPES_UNET)
+GRAY_UNET = dataclasses.replace(SHAPES_UNET, in_channels=1)
+GRAY_PROTOCOLS = ("white", "luma", "luma_norm")
 # the 2-D latent score network of the shapes_latent and mnist_latent2d
 # presets
 SHAPES_LATENT_MLP = ScoreMLP(hidden=256, depth=3, out_dim=2)
@@ -340,6 +374,215 @@ def sample_latent(params_list: Sequence[Any], pca: pca_codec.PCA, z_init,
     size = math.isqrt(pca.mean.shape[0])
     images = pca.decode(z, (size, size, 1)).clamp(-1.0, 1.0)
     return z, images
+
+
+def _ddpm_stack_fn(stack: ExpertStack, num_timesteps: int, labels,
+                   dev: torch.device, dtype: torch.dtype):
+    """eps_stack_fn(x, ti) of a DDPM sampler over ``stack``: the experts
+    take the integer timestep as a float, as the scripts' ``ti.astype(
+    float32)`` gives it (the column is built on the device once), compute
+    in ``dtype`` and hand the sampler float32."""
+    t_col = torch.arange(num_timesteps, dtype=torch.float32, device=dev)
+
+    def eps_stack_fn(x: torch.Tensor, ti: int) -> torch.Tensor:
+        return stack(x.to(dtype), t_col[ti].to(dtype), *labels).float()
+
+    return eps_stack_fn
+
+
+def _slot_labels(labels, k: int, b: int, n_slots: int,
+                 dev: torch.device) -> list:
+    """(K, n_slots) per-expert labels (None: 0 in every slot, as the
+    scripts default) -> one per-expert (K, B) label per slot."""
+    if labels is None:
+        lab = torch.zeros((k, n_slots), dtype=torch.long, device=dev)
+    else:
+        lab = torch.as_tensor(labels).to(dev)
+    if tuple(lab.shape) != (k, n_slots):
+        raise ValueError(f"labels must be ({k}, {n_slots}): one label per "
+                         f"expert per slot, got {tuple(lab.shape)}")
+    return [per_expert(lab[:, s:s + 1].expand(k, b)) for s in range(n_slots)]
+
+
+def _ddpm_setup(params_list, x_init, model: UNet, fused_gn: bool,
+                device, dtype: torch.dtype, seed: int, noise):
+    """The device, the expert stack, x on the device in float32, the
+    generator seeded with ``seed`` and the replayed ``noise`` there."""
+    dev = resolve_device(device)
+    model = dataclasses.replace(model, dtype=dtype, fused_gn=fused_gn)
+    stack = ExpertStack(model.apply, load_unets(params_list, dev, dtype))
+    x = torch.as_tensor(x_init, dtype=torch.float32).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return dev, model, stack, x, gen, None if noise is None else noise.to(dev)
+
+
+@torch.inference_mode()
+def sample_superdiff(params_list: Sequence[Any], x_init, labels=None,
+                     operation: str = "OR", rigorous_and: bool = False,
+                     temp: float = 1.0, bias=0.0,
+                     kappa: Optional[Sequence[float]] = None,
+                     num_timesteps: int = 1000, fused_gn: bool = True,
+                     seed: int = 0, noise: Optional[torch.Tensor] = None,
+                     device=None, dtype: torch.dtype = torch.float32,
+                     model: UNet = GUIDED_UNET) -> torch.Tensor:
+    """SUPERDIFF over K ``GUIDED_UNET`` experts: an fp32 (B, H, W, 3)
+    batch (28 x 28 in the served workload), as ``scripts/superdiff.py``
+    computes it on ``DDPMSchedule(num_timesteps)``.
+
+    ``labels``: (K, n_slots) per-expert labels, one per slot (the null token
+    is the slot's class count); None: 0 everywhere. ``operation``: OR, AND
+    (the heuristic), FIXED (``kappa``: K weights) or AVG, under
+    ``samplers.superdiff``; ``rigorous_and=True``: OR or AND under
+    ``samplers.superdiff_and_solve``. ``temp`` and ``bias`` as there.
+    ``params_list``: one UNet tree per expert (``convert.from_flax``, or
+    already through :func:`load_unets`). The draws come from a generator
+    seeded with ``seed`` on the device, unless ``noise=`` replays them
+    ((T, B, H, W, 3); (T, 2, B, H, W, 3) for the rigorous AND).
+    ``fused_gn=True`` runs every GroupNorm + SiLU through the
+    ``groupnorm_silu`` kernel. ``dtype``: the experts' compute type (the
+    preset's is float32). ``device=None`` is the CUDA card (raises without
+    one). ``model``: narrower ones exist for CPU tests only."""
+    op = operation.upper()
+    if rigorous_and and op not in ("OR", "AND"):
+        raise ValueError("rigorous_and supports operation 'OR' or 'AND' "
+                         f"only, got {operation!r}")
+    dev, model, stack, x, gen, noise = _ddpm_setup(
+        params_list, x_init, model, fused_gn, device, dtype, seed, noise)
+    labs = _slot_labels(labels, stack.k, x.shape[0], len(model.num_classes),
+                        dev)
+    eps_stack_fn = _ddpm_stack_fn(stack, num_timesteps, labs, dev, dtype)
+    sde = DDPMSchedule(num_timesteps=num_timesteps)
+    if rigorous_and:
+        return samplers.superdiff_and_solve(
+            eps_stack_fn, sde, gen, x, mode=op, temp=temp, bias=bias,
+            k_experts=stack.k, noise=noise)
+    return samplers.superdiff(eps_stack_fn, sde, gen, x, operation=op,
+                              temp=temp, bias=bias, kappa_fixed=kappa,
+                              noise=noise)
+
+
+def circular_mask(h: int, w: int, center=None, radius=None) -> np.ndarray:
+    """(h, w) float32 mask, 1 within ``radius`` of ``center`` (default: the
+    centre, and the largest radius that stays inside): the port's copy of
+    ``scripts/layout_compose.py``'s helper."""
+    if center is None:
+        center = (w // 2, h // 2)
+    if radius is None:
+        radius = min(center[0], center[1], w - center[0], h - center[1])
+    yy, xx = np.ogrid[:h, :w]
+    dist = np.sqrt((xx - center[0]) ** 2 + (yy - center[1]) ** 2)
+    return (dist <= radius).astype(np.float32)
+
+
+@torch.inference_mode()
+def sample_layout(params_list: Sequence[Any], x_init,
+                  radius: Optional[int] = None, num_timesteps: int = 1000,
+                  fused_gn: bool = True, seed: int = 0,
+                  noise: Optional[torch.Tensor] = None, device=None,
+                  dtype: torch.dtype = torch.float32,
+                  model: UNet = GUIDED_UNET) -> torch.Tensor:
+    """Layout composition of two ``GUIDED_UNET`` experts, as
+    ``scripts/layout_compose.py`` computes it: the first (background)
+    expert everywhere, the second in a centred circle of ``radius`` (the
+    largest inside by default) on top, under ``samplers.layout`` on
+    ``DDPMSchedule(num_timesteps)``, label 0 in every slot as the script
+    conditions them. Returns an fp32 (B, H, W, 3) batch. ``seed`` /
+    ``noise`` ((T, B, H, W, 3)), ``fused_gn``, ``dtype``, ``device`` and
+    ``model`` as in :func:`sample_superdiff`."""
+    dev, model, stack, x, gen, noise = _ddpm_setup(
+        params_list, x_init, model, fused_gn, device, dtype, seed, noise)
+    if stack.k != 2:
+        raise ValueError(f"layout composes 2 experts, got {stack.k}")
+    labs = _slot_labels(None, stack.k, x.shape[0], len(model.num_classes),
+                        dev)
+    h, w = x.shape[1:3]
+    masks = np.stack([np.ones((h, w), np.float32),
+                      circular_mask(h, w, radius=radius)])
+    masks = compose.constant(masks.ravel().tolist(), torch.float32,
+                             dev).reshape(2, h, w)
+    return samplers.layout(
+        _ddpm_stack_fn(stack, num_timesteps, labs, dev, dtype),
+        DDPMSchedule(num_timesteps=num_timesteps), gen, x, masks,
+        noise=noise)
+
+
+@torch.inference_mode()
+def sample_ancestral(params_list: Sequence[Any], x_init, labels,
+                     weights: Sequence[float] = (1.0, 1.0, 1.0),
+                     num_timesteps: int = 500, fused_gn: bool = True,
+                     seed: int = 0, noise: Optional[torch.Tensor] = None,
+                     device=None, dtype: torch.dtype = torch.float32,
+                     model: UNet = SHAPES_UNET) -> torch.Tensor:
+    """The bbox composition of ``scripts/compose_bbox.py``: three
+    class-conditional ``unet64`` experts (shape, color, bbox) blended by
+    ``compose.weighted`` with ``weights`` under ``samplers.ddpm_ancestral``
+    on ``DDPMSchedule(num_timesteps)`` (the ``shapes_bbox`` preset's 500).
+    Returns an fp32 (B, H, W, 3) batch (64 x 64 in the served workload).
+    ``labels``: (K, B) integer labels, row i for expert i. ``seed`` /
+    ``noise`` ((T, B, H, W, 3)), ``fused_gn``, ``dtype``, ``device`` and
+    ``model`` as in :func:`sample_superdiff`."""
+    dev, model, stack, x, gen, noise = _ddpm_setup(
+        params_list, x_init, model, fused_gn, device, dtype, seed, noise)
+    stack_fn = _ddpm_stack_fn(stack, num_timesteps,
+                              [per_expert(torch.as_tensor(labels).to(dev))],
+                              dev, dtype)
+    w = compose.constant(weights, torch.float32, dev)
+    return samplers.ddpm_ancestral(
+        lambda x_, ti: weighted(stack_fn(x_, ti), w),
+        DDPMSchedule(num_timesteps=num_timesteps), gen, x, noise=noise)
+
+
+@torch.inference_mode()
+def sample_gray_color(shape_params: Any, color_params: Any, x_init,
+                      shape_labels, color_labels, op: str = "avg",
+                      gray_protocol: str = "white", w_shape: float = 1.0,
+                      w_color: float = 1.0, n_steps: int = 200,
+                      fused_gn: bool = True, device=None,
+                      dtype: torch.dtype = torch.float32,
+                      shape_model: UNet = GRAY_UNET,
+                      color_model: UNet = SHAPES_UNET) -> torch.Tensor:
+    """The mixed-channel composition of ``scripts/compose_images_ddim.py``:
+    a 1-channel shape expert that sees ``experts.rgb_to_gray(x)`` (unit-norm
+    with ``gray_protocol="luma_norm"``) and a 3-channel color expert that
+    sees x, under DDIM on ``VPSchedule()`` (the ``shapes_ddim`` preset's
+    200 steps). ``op="avg"``: ``compose.weighted`` over the lifted gray
+    prediction (``experts.gray_to_rgb``, the adjoint lift for
+    ``luma_norm``) and the color one, weights (w_shape, w_color);
+    ``op="proj"``: ``compose.projected`` with weight ``w_shape``, which
+    needs ``gray_protocol="luma_norm"`` (the gray expert must estimate
+    exactly P eps). Returns an fp32 (B, H, W, 3) batch.
+    ``shape_labels``, ``color_labels``: (B,) class labels. ``fused_gn``,
+    ``dtype`` (the preset's is float32), ``device`` as in
+    :func:`sample_shapes`; the models are narrower for CPU tests only."""
+    if op not in ("avg", "proj"):
+        raise ValueError(f"op must be 'avg' or 'proj', got {op!r}")
+    if gray_protocol not in GRAY_PROTOCOLS:
+        raise ValueError(f"gray_protocol must be one of {GRAY_PROTOCOLS}, "
+                         f"got {gray_protocol!r}")
+    normalized = gray_protocol == "luma_norm"
+    if op == "proj" and not normalized:
+        raise ValueError("op='proj' needs gray_protocol='luma_norm' (the "
+                         "gray expert must estimate exactly P eps)")
+    dev = resolve_device(device)
+    shape_model, color_model = (
+        dataclasses.replace(m, dtype=dtype, fused_gn=fused_gn)
+        for m in (shape_model, color_model))
+    sp, cp = load_unets([shape_params, color_params], dev, dtype)
+    sl, cl = (torch.as_tensor(lab).to(dev)
+              for lab in (shape_labels, color_labels))
+    w = compose.constant((w_shape, w_color), torch.float32, dev)
+
+    def eps_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        e_gray = shape_model.apply(sp, rgb_to_gray(x, normalized).to(dtype),
+                                   t.to(dtype), sl).float()
+        e_color = color_model.apply(cp, x.to(dtype), t.to(dtype), cl).float()
+        if op == "proj":
+            return compose.projected(e_color, e_gray, w_shape)
+        return weighted(torch.stack([gray_to_rgb(e_gray, normalized),
+                                     e_color]), w)
+
+    x = torch.as_tensor(x_init, dtype=torch.float32).to(dev)
+    return ddim(eps_fn, VPSchedule(), x, n_steps)
 
 
 def train_experts(steps: int = 12000, batch_size: int = 256, lr: float = 2e-4,

@@ -1,16 +1,25 @@
-"""ExpertStack: K same-architecture experts behind one apply.
+"""ExpertStack: K same-architecture experts behind one apply, and the
+blend across experts of different signatures.
 
-Port of ``composable_diffusion_models_tpu.experts.ExpertStack``. The JAX
-version unrolls small K and vmaps over stacked parameters for large K; both
-compute the same (K, B, ...) stack, which a Python loop over the experts
-computes here for every K.
+Port of ``composable_diffusion_models_tpu.experts``: ``ExpertStack`` and
+``per_expert``, ``grouped_eps_fn`` (groups of experts with their own input
+adapters and output lifts, e.g. a 1-channel shape expert beside a
+3-channel color expert), ``rgb_to_gray`` and ``gray_to_rgb`` (the
+projection those experts see through, and its lift). The JAX
+``ExpertStack`` unrolls small K and vmaps over stacked parameters for large
+K; both compute the same (K, B, ...) stack, which a Python loop over the
+experts computes here for every K. Still to port: ``stack_params``,
+``unstack_params`` and ``pad_expert_stack``, which exist for the
+expert-parallel sharding of ``parallel/``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
+
+from .compose import LUMA_W, constant
 
 
 class PerExpert:
@@ -59,3 +68,67 @@ class ExpertStack:
             self.apply_fn(p, x, t, *(lab.value[i] if isinstance(lab, PerExpert)
                                      else lab for lab in labels))
             for i, p in enumerate(self.params_list)])
+
+
+EpsStackFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def grouped_eps_fn(groups: Sequence[EpsStackFn],
+                   adapters: Sequence[Callable] = (),
+                   lifts: Sequence[Callable] = ()) -> EpsStackFn:
+    """Blend across heterogeneous expert groups. Each group is an
+    ``eps_stack_fn(x, t) -> (K_g, B, ...)`` over its own input signature;
+    ``adapters[g]`` maps the sampler's x into the group's input (e.g. RGB
+    -> gray), ``lifts[g]`` maps each of the group's K_g predictions back
+    into the sampler's space (e.g. 1 -> 3 channels). Returns the combined
+    ``eps_stack_fn`` producing the concatenated (sum K_g, B, ...) stack.
+    Empty ``adapters`` / ``lifts`` mean identities; otherwise there must be
+    one per group (zip would silently drop groups)."""
+    adapters = list(adapters) or [lambda x: x] * len(groups)
+    lifts = list(lifts) or [lambda e: e] * len(groups)
+    if len(adapters) != len(groups) or len(lifts) != len(groups):
+        raise ValueError(
+            f"adapters ({len(adapters)}) and lifts ({len(lifts)}) must match "
+            f"groups ({len(groups)}): pass identity functions for "
+            "pass-through groups")
+
+    def eps_stack_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        outs = []
+        for g, ad, lf in zip(groups, adapters, lifts):
+            eps = g(ad(x), t)
+            outs.append(torch.stack([lf(e) for e in eps.unbind(0)]))
+        return torch.cat(outs, dim=0)
+
+    return eps_stack_fn
+
+
+def _unit_row(x: torch.Tensor, weights: Optional[Sequence[float]]):
+    """The projection row (LUMA_W by default) in x's dtype on x's device,
+    and its norm."""
+    w = constant(LUMA_W if weights is None else weights, x.dtype, x.device)
+    return w, torch.sqrt((w * w).sum())
+
+
+def rgb_to_gray(x: torch.Tensor, normalized: bool = False,
+                weights: Optional[Sequence[float]] = None) -> torch.Tensor:
+    """Channel projection of NHWC ``x`` to one channel: sum_c w_c x_c with
+    the ITU-R 601 luma weights by default (``weights``: another row, e.g.
+    (1, 1, 1)). ``normalized=True`` divides by ||w||, which makes the
+    projection row unit-norm: the gray view of a unit-variance RGB
+    diffusion state is then itself one, P x_t = a P x0 + s eps1 with eps1
+    ~ N(0, 1)."""
+    w, norm = _unit_row(x, weights)
+    g = (x * w).sum(dim=-1, keepdim=True)
+    return g / norm if normalized else g
+
+
+def gray_to_rgb(eps: torch.Tensor, normalized: bool = False,
+                weights: Optional[Sequence[float]] = None) -> torch.Tensor:
+    """Lift a 1-channel prediction to 3 channels: equal broadcast (the
+    reference's ``repeat(1, 3, 1, 1)``), or with ``normalized=True`` the
+    adjoint of :func:`rgb_to_gray`'s unit-norm projection, eps * w / ||w||
+    (``weights`` must match the projection that made the view)."""
+    if not normalized:
+        return eps.repeat_interleave(3, dim=-1)
+    w, norm = _unit_row(eps, weights)
+    return eps * (w / norm)

@@ -469,3 +469,117 @@ def test_latent_path_launches_its_kernels():
                                  weights=(0.7, 1.9), fused_blend=False)
     # float32 both ways; at most a rounding per blend differs
     assert float((z_k - z_p).abs().max()) <= 1e-4 * float(z_p.abs().max())
+
+
+# ------------------------------------------- the discrete-DDPM paths (K4)
+@pytest.mark.parametrize("shape", [
+    (64, 28, 28, 64), (64, 14, 14, 128), (64, 7, 7, 256),   # GUIDED_UNET
+    (128, 28, 28, 64), (192, 28, 28, 64),                    # K x B rows
+    (4, 64, 64, 64), (4, 32, 32, 128), (4, 16, 16, 256),     # bbox, batch 4
+    (64, 64, 64, 64)])                                       # bbox, batch 64
+def test_groupnorm_silu_at_the_ddpm_paths_shapes(shape):
+    """float32, as those paths compute: summation order of the statistics
+    only, 1e-5 of scale."""
+    g = torch.Generator().manual_seed(sum(shape))
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=g) * 2 + 0.5).cuda()
+    scale = (1 + 0.1 * torch.randn(c, generator=g)).cuda()
+    bias = (0.1 * torch.randn(c, generator=g)).cuda()
+    got = kernels.groupnorm_silu(x, scale, bias, 8)
+    torch.cuda.synchronize()
+    ref = kernels.groupnorm_silu_ref(x, scale, bias, 8)
+    assert float((got - ref).abs().max()) <= _tol(torch.float32, ref, 1e-5)
+
+
+@pytest.mark.parametrize("bhw,chans", [
+    ((64, 14, 14), (256, 128)), ((64, 28, 28), (128, 64)),
+    ((4, 32, 32), (256, 128)), ((4, 64, 64), (128, 64))])
+def test_groupnorm_silu_split_at_the_ddpm_paths_shapes(bhw, chans):
+    g = torch.Generator().manual_seed(sum(bhw) + sum(chans))
+    c = sum(chans)
+    parts = [(torch.randn(*bhw, cc, generator=g) * 2 + 0.5).cuda()
+             for cc in chans]
+    scale = (1 + 0.1 * torch.randn(c, generator=g)).cuda()
+    bias = (0.1 * torch.randn(c, generator=g)).cuda()
+    got = kernels.groupnorm_silu_split(parts, scale, bias, 8)
+    torch.cuda.synchronize()
+    whole = kernels.groupnorm_silu_ref(torch.cat(parts, -1), scale, bias, 8)
+    assert float((torch.cat(got, -1) - whole).abs().max()) <= _tol(
+        torch.float32, whole, 1e-5)
+
+
+def _guided(k=2, b=4):
+    trees = entry.load_unets(
+        [convert.from_flax(convert.init_params(entry.GUIDED_UNET, seed=i))
+         for i in range(k)], dtype=torch.float32)
+    x = torch.randn(b, 28, 28, 3, device="cuda")
+    labels = torch.tensor([[3, 10], [7, 2], [1, 1]][:k], device="cuda")
+    return trees, x, labels
+
+
+def test_ddpm_samplers_make_no_host_sync():
+    """A warm call of SUPERDIFF OR and of the rigorous AND (the K x K
+    solve) waits on the card nowhere: under sync debug mode "error" a
+    synchronising call would raise. The mode does catch what the repairs
+    removed: ``torch.linalg.solve``'s error check and reading a scalar back
+    from the card."""
+    trees, x, labels = _guided()
+    runs = [lambda: entry.sample_superdiff(trees, x, labels, num_timesteps=3),
+            lambda: entry.sample_superdiff(trees, x, labels, operation="AND",
+                                           rigorous_and=True,
+                                           num_timesteps=3)]
+    for run in runs:
+        run()  # the first call fills the caches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert bool(torch.isfinite(out).all())
+    a = torch.eye(2, device="cuda").expand(3, 2, 2)
+    for synchronising in (lambda: torch.linalg.solve(a, a[..., :1]),
+                          lambda: float(torch.zeros((), device="cuda"))):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with pytest.raises(RuntimeError):
+                synchronising()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def test_ddpm_paths_launch_groupnorm_silu():
+    """Eight single-tensor and two two-part K4 launches per UNet forward:
+    K experts x T steps forwards on each DDPM path, none with
+    fused_gn=False."""
+    trees, x, labels = _guided()
+    shapes = entry.load_unets(
+        [convert.from_flax(convert.init_params(entry.SHAPES_UNET, seed=i))
+         for i in range(3)], dtype=torch.float32)
+    x64 = torch.randn(2, 64, 64, 3, device="cuda")
+    lab3 = torch.zeros(3, 2, dtype=torch.long, device="cuda")
+    gray = entry.load_unets([convert.from_flax(convert.init_params(
+        entry.GRAY_UNET, seed=9))], dtype=torch.float32)[0]
+    cases = [
+        (lambda **kw: entry.sample_superdiff(trees, x, labels,
+                                             num_timesteps=3, **kw), 6),
+        (lambda **kw: entry.sample_superdiff(
+            trees, x, labels, operation="AND", rigorous_and=True,
+            num_timesteps=3, **kw), 6),
+        (lambda **kw: entry.sample_layout(trees, x, num_timesteps=3, **kw),
+         6),
+        (lambda **kw: entry.sample_ancestral(shapes, x64, lab3,
+                                             num_timesteps=3, **kw), 9),
+        (lambda **kw: entry.sample_gray_color(
+            gray, shapes[0], x64, lab3[0], lab3[1], op="proj",
+            gray_protocol="luma_norm", n_steps=3, **kw), 6)]
+    for run, forwards in cases:
+        for fused in (True, False):
+            n0 = (kernels.groupnorm_silu.launches,
+                  kernels.groupnorm_silu_split.launches)
+            out = run(fused_gn=fused)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(out).all())
+            want = (8 * forwards, 2 * forwards) if fused else (0, 0)
+            assert (kernels.groupnorm_silu.launches - n0[0],
+                    kernels.groupnorm_silu_split.launches - n0[1]) == want

@@ -186,10 +186,16 @@ def test_ddim_matches_jax_on_analytic_eps():
 
 
 def test_ddim_unported_variants_raise():
+    """Every variant of the JAX sampler is ported now; what still raises
+    is what the JAX sampler refuses too: eta > 0 or the corrector without
+    a key, v prediction off the stable kind, an unknown prediction."""
     x = torch.zeros(1, 4, 4, 1)
-    for kw in ({"eta": 0.5}, {"predict": "v"}, {"corrector_steps": 1}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"eta": 0.5}, {"corrector_steps": 1}):
+        with pytest.raises(ValueError, match="key"):
             samplers.ddim(lambda x, t: x, schedules.VPSchedule(), x, 2, **kw)
+    with pytest.raises(ValueError, match="stable"):
+        samplers.ddim(lambda x, t: x, schedules.VPSchedule(kind="cosine"), x,
+                      2, predict="v")
     with pytest.raises(ValueError):
         samplers.ddim(lambda x, t: x, schedules.VPSchedule(), x, 2,
                       predict="score")

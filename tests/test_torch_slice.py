@@ -136,11 +136,14 @@ def test_port_imports_nothing_of_jax():
             for p in sorted(PKG.rglob("*.py"))]
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods] + scripts
-    # the walk reaches every slice's modules, the latent slice's included
+    # the walk reaches every slice's modules: the serving paths', the
+    # latent slice's, the training path's and the DDPM samplers'
     assert {PKG.name + "." + m for m in (
-        "models.dit", "models.unet", "models.mlp", "ops.kernels",
-        "ops.attention", "ops.pca", "ops.divergence", "compose", "samplers",
-        "schedules", "convert", "entry")} <= set(mods)
+        "models.dit", "models.unet", "models.mlp", "models.probe",
+        "models.embeddings", "ops.kernels", "ops.attention", "ops.pca",
+        "ops.divergence", "ops._build", "compose", "experts", "samplers",
+        "schedules", "convert", "entry", "train", "data", "gate", "eval",
+        "checkpoint", "rng")} <= set(mods)
     code = ("import sys\n"
             + "".join(f"sys.modules[{n!r}] = None\n" for n in _FORBIDDEN)
             + "import importlib\n"
