@@ -21,7 +21,8 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     paths' shapes and at ragged ones (groups that straddle the parts, one
     part only); ``flash_attention`` at head widths it pads (8, 24, 48, 80,
     100); the bfloat16 kernels' fast GELU and sigmoid where they saturate
-    (|x| around 10 and 80);
+    (|x| around 10 and 80); ``fused_dit_block`` also at the shapes gate's
+    DiT cells, (64, 64, 256) bf16, one 64-token image a block;
  4. the DiT path: 3 composed ``dit_p14_d256_l4`` experts (random weights
     from a seed), 50-step DDIM, batch 2048, bf16, through
     ``entry.sample``: finite output, exactly 600 ``fused_dit_block``
@@ -94,7 +95,28 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     of a few steps under ``torch.cuda.set_sync_debug_mode("error")``;
     phase 3 holds ``groupnorm_silu`` and its two-part form at these paths'
     shapes;
-16. one ``kernels`` JSON line, then the result line.
+16. the shapes gate (``entry.quality_gate_shapes``), the protocol of
+    ``scripts/quality_gate_shapes.py`` cut to the phase's time at full
+    width: 8192 shapes of 64 x 64 made on the card, the two-factor probe,
+    the shape and color experts of ``unet64`` (batch 128, bf16 compute,
+    GroupNorm in PyTorch ops) and ``dit_p8_d256_l8`` (float32) trained a few
+    hundred steps each (train steps/s, images/s, loss at start and end,
+    a short profile of one expert's steps and of each served cell),
+    then the 9 (shape, color) cells at 64 samples and 50 steps through the
+    served programs: exactly 800 ``groupnorm_silu`` + 200
+    ``groupnorm_silu_split`` launches per ``unet64`` cell and 800
+    ``fused_dit_block`` launches (64 tokens an image) per DiT cell,
+    images/s, the verdict and its criteria (of an under-trained run: not a
+    condition); a trained cell of each against its plain path (phase 3
+    holds ``fused_dit_block`` at these cells' (64, 64, 256) bf16 against
+    its plain version, timed, beside its bound);
+17. NLL and the last samplers on the trained ``unet64`` shape expert:
+    ``entry.eval_nll`` (64 images, 50 steps, 1 probe: finite bits/dim,
+    seconds, images/s); ``parallel_prob_flow`` swept to its fixed point
+    and held to the sequential ``prob_flow_ode``; a warm call of it and of
+    a classifier-guided ``ddim`` (the gate's probe steering the color)
+    under ``set_sync_debug_mode("error")``;
+18. one ``kernels`` JSON line, then the result line.
 
 Exits with code 2 and prints no result where there is no CUDA card.
 """
@@ -212,6 +234,22 @@ SD_BATCH, SD_T, SD_CUT = 64, 1000, 100
 BBOX_BATCH, BBOX_BATCH_TIMED, BBOX_T = 4, 64, 500
 GC_BATCH, GC_STEPS, FAM_STEPS = 128, 200, 20
 PROFILE_STEPS, UNFUSED_STEPS = 5, 20
+# the shapes gate (phase 16): scripts/quality_gate_shapes.py's protocol cut
+# to the phase's time: its 8192 shapes of 64 x 64 x 3 (made on the card),
+# the probe SG_PROBE_STEPS (its 2000), each configuration's shape and color
+# experts SG_TRAIN_STEPS at its batch 128 (its 12000), then its 9 cells at
+# its 64 samples and 50 steps
+SG_DATA_N, SG_IMG, SG_BATCH = 8192, 64, 128
+SG_TRAIN_STEPS, SG_PROBE_STEPS, SG_SAMPLES, SG_STEPS = 300, 300, 64, 50
+SG_PROFILE_STEPS = 10
+SG_K1 = (SG_SAMPLES, 64, 256, 8)  # (B, T, D, heads) of the DiT cells' K1
+# NLL and the last samplers (phase 17) on the trained unet64 shape expert:
+# eval_nll at NLL_N images, NLL_STEPS steps, 1 probe; Picard sweeps over
+# PPF_STEPS time points at batch PPF_BATCH, as many sweeps as points (the
+# sequential Euler solve's fixed point); classifier-guided DDIM
+NLL_N, NLL_STEPS = 64, 50
+PPF_BATCH, PPF_STEPS = 8, 16
+CG_BATCH, CG_STEPS, CG_SCALE = 64, 20, 2.0
 # groupnorm_silu at those paths' shapes (float32): the guided UNet's three
 # levels at batch 64, two and three experts' rows at once, the bbox
 # experts' levels at batch 4 and the timed batch 64 (batch 128 at 64 x 64
@@ -1620,6 +1658,338 @@ def ddim_family(card, convert, entry, unet, kernels, attention, compose,
     return launches
 
 
+def k1_at(kernels, b, t, d, h) -> dict:
+    """fused_dit_block in bf16 at (B, T, D) with H heads against its plain
+    version on the same random inputs, timed by events and from a trace,
+    beside its bound; the numbers for the JSON line."""
+    gen = torch.Generator().manual_seed(16)
+    dtype = torch.bfloat16
+    args = block_inputs(b, t, d, dtype, gen)
+    got = kernels.fused_dit_block(*args, h)
+    torch.cuda.synchronize()
+    ref = kernels.fused_dit_block_ref(*args, h)
+    err, tol = max_err(got, ref), tolerance(dtype, ref, 2e-4)
+    ms = time_ms(lambda: kernels.fused_dit_block(*args, h))
+    dev = device_ms(lambda: kernels.fused_dit_block(*args, h))
+    plain = time_ms(lambda: kernels.fused_dit_block_ref(*args, h))
+    flops = 2 * b * t * 12 * d * d + 4 * b * t * t * d
+    nbytes = 2 * (2 * b * t * d + 12 * d * d + 9 * d)
+    bms, by = bound_ms(flops, nbytes, dtype)
+    log(f"fused_dit_block bf16 B={b} T={t} D={d} H={h} (one image a block): "
+        f"max_abs_err={err:.3e} tol={tol:.3e}; kernel {ms:.4f} ms ({dev:.4f} "
+        f"ms on the device in a trace), plain {plain:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
+        f"MB)")
+    if not err <= tol:
+        fail(f"fused_dit_block disagrees with its plain version at "
+             f"{(b, t, d)}")
+    return dict(shape=[b, t, d, h], max_abs_err=err, ms=ms, device_ms=dev,
+                plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+def loss_curve(label: str, losses) -> None:
+    """Prints a loss curve's start and end; fails unless the mean of its
+    last 50 steps is below half the mean of its first 10."""
+    loss = losses.float().cpu()
+    first, last = float(loss[:10].mean()), float(loss[-50:].mean())
+    curve = ", ".join(f"{float(loss[j:j + 50].mean()):.4f}"
+                      for j in range(0, len(loss), 50))
+    log(f"  {label}: mean loss of the first 10 steps {first:.4f}, of the "
+        f"last 50 {last:.4f}; 50-step window means: {curve}")
+    if not (math.isfinite(last) and last < 0.5 * first):
+        fail(f"{label}'s loss did not fall below half its start")
+
+
+@contextlib.contextmanager
+def per_call_launches(module, name: str, kernels, attention, record: list):
+    """Patches ``module.name`` so that each call counts its launches from 0
+    and appends (launches, seconds) to ``record``."""
+    orig = getattr(module, name)
+
+    def run(*args, **kw):
+        reset_launches(kernels, attention)
+        out, sec = timed(lambda: orig(*args, **kw))
+        record.append((read_launches(kernels, attention), sec))
+        return out
+    with mock.patch.object(module, name, run):
+        yield
+
+
+def shapes_gate_path(card, entry, dit, kernels, attention) -> dict:
+    """Phase 16. Returns the launches of each configuration's first 9-cell
+    pass, the trained trees and the gate's probe."""
+    from composable_diffusion_models_tpu_torch import data, train
+    from composable_diffusion_models_tpu_torch import eval as ceval
+    from composable_diffusion_models_tpu_torch.rng import Draws
+    from composable_diffusion_models_tpu_torch.schedules import VPSchedule
+
+    # a. the dataset on the card
+    full, sec = timed(lambda: data.make_shapes_dataset(SG_DATA_N, SG_IMG,
+                                                       device="cuda"))
+    log(f"shapes gate: {SG_DATA_N} shapes of {SG_IMG} x {SG_IMG} x 3 made "
+        f"on the card in {sec:.3f} s")
+
+    # b. each configuration's shape and color experts
+    trees = {}
+    for cfg in entry.SHAPES_GATE_CONFIGS:
+        compute = ("bf16 compute, GroupNorm in PyTorch ops"
+                   if cfg.startswith("unet")
+                   else "float32 compute, einsum attention")
+        (trees[cfg], losses), sec = timed(lambda: entry.train_shapes_experts(
+            cfg, SG_TRAIN_STEPS, SG_BATCH, data_n=SG_DATA_N, img=SG_IMG,
+            dataset=full))
+        steps = 2 * SG_TRAIN_STEPS
+        log(f"  {cfg}: shape and color experts x {SG_TRAIN_STEPS} steps, "
+            f"batch {SG_BATCH}, {compute}, Adam 2e-4, clip 1.0, EMA 0.999: "
+            f"{sec:.1f} s = {steps / sec:.2f} train steps/s = "
+            f"{steps * SG_BATCH / sec:.0f} train images/s (init and "
+            f"first-call set-up included) ({card})")
+        for i, loss in enumerate(losses):
+            loss_curve(f"{cfg} {('shape', 'color')[i]} expert", loss)
+        for tree in trees[cfg]:
+            if not all(bool(torch.isfinite(leaf).all())
+                       for leaf in train.flatten(tree)[1]):
+                fail(f"a {cfg} EMA tree is not finite")
+        # steady state of one expert's training, then a short profile
+        model, _ = entry.shapes_gate_model(cfg, SG_IMG)
+
+        def run(model=model, p0=trees[cfg][0]):
+            return train.train_expert(
+                3, model.apply, p0, VPSchedule(), full[0], (full[1],),
+                steps=SG_PROFILE_STEPS, batch_size=SG_BATCH, ema_decay=0.999,
+                clip_norm=1.0)
+        run()
+        _, sec = timed(run)
+        log(f"  {cfg}: {SG_PROFILE_STEPS} steps of one expert without the "
+            f"profiler: {sec / SG_PROFILE_STEPS * 1e3:.3f} ms/step = "
+            f"{SG_BATCH * SG_PROFILE_STEPS / sec:.0f} train images/s")
+        profile_steps(f"{cfg} training, {SG_PROFILE_STEPS} steps of one "
+                      f"expert, batch {SG_BATCH}", run, SG_PROFILE_STEPS)
+
+    # c. the gate: the probe, the 9 cells of each configuration through
+    # the served programs (warmed at the cells' batch first), the judge
+    served = {"unet64": entry.SHAPES_GATE_CONFIGS[0],
+              "dit": entry.SHAPES_GATE_CONFIGS[1]}
+    _, unet_serve = entry.shapes_gate_model(served["unet64"], SG_IMG)
+    _, dit_serve = entry.shapes_gate_model(served["dit"], SG_IMG)
+    unet_params = entry.load_unets(trees[served["unet64"]])
+    dit_params = entry.load_experts(trees[served["dit"]])
+    x = Draws(40, "cuda").normal((SG_SAMPLES, SG_IMG, SG_IMG, 3))
+    labs_u = torch.zeros((2, SG_SAMPLES), dtype=torch.long, device="cuda")
+    labs_d = torch.zeros((2, 1), dtype=torch.long, device="cuda")
+    profile_steps(f"unet64 cell, {PROFILE_STEPS} steps of 2 forwards, "
+                  f"batch {SG_SAMPLES}",
+                  lambda: entry.sample_shapes(unet_params, x, labs_u,
+                                              PROFILE_STEPS,
+                                              model=unet_serve),
+                  PROFILE_STEPS)
+    profile_steps(f"dit_p8_d256_l8 cell, {PROFILE_STEPS} steps of 2 "
+                  f"forwards, batch {SG_SAMPLES}",
+                  lambda: entry.sample(dit_params, x, PROFILE_STEPS,
+                                       labels=(labs_d,), model=dit_serve),
+                  PROFILE_STEPS)
+    cells = {"sample_shapes": [], "sample": []}
+    with per_call_launches(entry, "sample_shapes", kernels, attention,
+                           cells["sample_shapes"]), \
+            per_call_launches(entry, "sample", kernels, attention,
+                              cells["sample"]), \
+            last_output(ceval, "train_probe") as probe_box:
+        reports, sec = timed(lambda: entry.quality_gate_shapes(
+            probe_steps=SG_PROBE_STEPS, samples_per_cell=SG_SAMPLES,
+            n_steps=SG_STEPS, train_steps=SG_TRAIN_STEPS, experts=trees))
+    log(f"  quality_gate_shapes (probe {SG_PROBE_STEPS} steps, 9 cells x "
+        f"{SG_SAMPLES} samples x {SG_STEPS} steps per configuration, the "
+        f"experts above): {sec:.1f} s")
+    want = {"sample_shapes": dict(groupnorm_silu=8 * 2 * SG_STEPS,
+                                  groupnorm_silu_split=2 * 2 * SG_STEPS),
+            "sample": dict(fused_dit_block=dit_serve.depth * 2 * SG_STEPS)}
+    first_pass = {}
+    for fn, cfg in (("sample_shapes", served["unet64"]),
+                    ("sample", served["dit"])):
+        rec = cells[fn]
+        report = reports[cfg]
+        n = report["n_samples"]
+        if len(rec) not in (9, 18):
+            fail(f"{cfg}: {len(rec)} cells served, expected 9 (18 with the "
+                 f"escalation)")
+        for counts, _ in rec:
+            expect = dict.fromkeys(counts, 0)
+            expect.update(want[fn])
+            if counts != expect:
+                fail(f"{cfg}: a cell launched {counts}, expected {expect}")
+        first_pass[cfg] = {k: 9 * v for k, v in want[fn].items()}
+        cell_sec = [s_ for _, s_ in rec[:9]]
+        gflop = (entry.unet_gflop_per_image(unet_serve, SG_IMG, SG_IMG)
+                 if fn == "sample_shapes"
+                 else entry.dit_gflop_per_image(dit_serve)) * 2 * SG_STEPS
+        log(f"  {cfg}: 9 cells of {SG_SAMPLES} in {sum(cell_sec):.3f} s = "
+            f"{9 * SG_SAMPLES / sum(cell_sec):.1f} images/s (cells "
+            f"{min(cell_sec):.3f}-{max(cell_sec):.3f} s); {gflop:.1f} "
+            f"GFLOP/image -> {gflop * 9 * SG_SAMPLES / sum(cell_sec) / 1e3:.1f}"
+            f" TFLOP/s; launches per cell {rec[0][0]}; probe held-in "
+            f"{report['probe_heldin']}; composed {report['composed']}"
+            + (f"; escalated to {n} samples a cell" if len(rec) == 18
+               else ""))
+        log(f"  {cfg}: verdict {report['verdict']} against "
+            f"{report['baseline_config']} (an under-trained run: "
+            f"{SG_TRAIN_STEPS} steps where the script takes 12000; not a "
+            f"condition)")
+        log(json.dumps({"shapes_gate": {"config": cfg, "criteria":
+                                        report.get("criteria")}}))
+
+    # d. trained cells against their plain paths, on the same noise
+    out, sec = timed(lambda: entry.sample_shapes(
+        unet_params, x, labs_u, SG_STEPS, model=unet_serve))
+    ref, sec_p = timed(lambda: entry.sample_shapes(
+        unet_params, x, labs_u, SG_STEPS, model=unet_serve, fused_gn=False))
+    diff = (out - ref).abs()
+    log(f"  trained unet64 cell (0, 0), bf16: kernel path vs fused_gn=False "
+        f"after {SG_STEPS} steps: mean |diff| {float(diff.mean()):.4e}, max "
+        f"{float(diff.max()):.4e}; |x| >= 1 at "
+        f"{float((out.abs() >= 1).float().mean()):.3f} of the elements; "
+        f"{SG_SAMPLES / sec:.1f} against {SG_SAMPLES / sec_p:.1f} images/s")
+    if not float(diff.mean()) <= 0.05:
+        fail("the trained unet64 cell's kernel path drifts from its plain "
+             "path")
+    p32 = entry.load_unets(trees[served["unet64"]], dtype=torch.float32)
+    out32 = entry.sample_shapes(p32, x, labs_u, SG_STEPS, model=unet_serve,
+                                dtype=torch.float32)
+    ref32 = entry.sample_shapes(p32, x, labs_u, SG_STEPS, model=unet_serve,
+                                dtype=torch.float32, fused_gn=False)
+    scale = max(1.0, float(ref32.abs().max()))
+    err32 = max_err(out32, ref32)
+    log(f"  the same cell in float32: max |diff| {err32:.3e}, mean "
+        f"{float((out32 - ref32).abs().mean()):.3e} at scale {scale:.3g} "
+        f"(bar 1e-3 of the scale, per element)")
+    if not err32 <= 1e-3 * scale:
+        fail("the trained unet64 cell in float32 disagrees with its plain "
+             "path")
+    del p32, out32, ref32
+    out = entry.sample(dit_params, x, SG_STEPS, labels=(labs_d,),
+                       model=dit_serve)
+    with mock.patch.object(dit, "fused_dit_block",
+                           kernels.fused_dit_block_ref):
+        ref = entry.sample(dit_params, x, SG_STEPS, labels=(labs_d,),
+                           model=dit_serve)
+    diff = (out - ref).abs()
+    log(f"  trained dit_p8_d256_l8 cell (0, 0), bf16: fused_dit_block vs "
+        f"its plain version after {SG_STEPS} steps: mean |diff| "
+        f"{float(diff.mean()):.4e}, max {float(diff.max()):.4e}; |x| >= 1 at "
+        f"{float((out.abs() >= 1).float().mean()):.3f} of the elements")
+    if not float(diff.mean()) <= 0.05:
+        fail("the trained DiT cell's kernel path drifts from its plain path")
+    probe, probe_params = probe_box["out"]
+    return dict(launches=first_pass, trees=trees, probe=(probe, probe_params))
+
+
+def nll_and_samplers(card, entry, samplers, kernels, attention, tree,
+                     probe) -> None:
+    """Phase 17 on the trained unet64 shape expert ``tree`` (float32 EMA)
+    and the gate's probe."""
+    import dataclasses
+    from composable_diffusion_models_tpu_torch.schedules import VPSchedule
+    reset_launches(kernels, attention)
+    rep, sec = timed(lambda: entry.eval_nll(
+        tree, entry.SHAPES_UNET, dataset="shapes",
+        dataset_kw=dict(img_size=SG_IMG), n_data=NLL_N, n_steps=NLL_STEPS,
+        n_probes=1, conditional=True, label_slots=(0,), seed=0))
+    counts = read_launches(kernels, attention)
+    log(f"NLL (entry.eval_nll): the trained unet64 shape expert, float32, "
+        f"{NLL_N} shapes, {NLL_STEPS} steps, 1 Rademacher probe: "
+        f"{rep['bits_per_dim_mean']:.4f} +- {rep['bits_per_dim_sem']:.4f} "
+        f"bits/dim ({rep['nll_nats_mean']:.1f} nats) in {sec:.2f} s = "
+        f"{NLL_N / sec:.1f} images/s ({card}); launches {counts}")
+    if not all(math.isfinite(rep[k]) for k in ("bits_per_dim_mean",
+                                               "nll_nats_mean")):
+        fail("eval_nll's bits/dim are not finite")
+    if any(counts.values()):
+        fail(f"eval_nll launched a kernel inside its jvps: {counts}")
+
+    params, = entry.load_unets([tree])  # bf16, served through K4
+    model = dataclasses.replace(entry.SHAPES_UNET, dtype=torch.bfloat16,
+                                fused_gn=True)
+    sched = VPSchedule()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = PPF_STEPS * PPF_BATCH
+    lab = torch.zeros((rows,), dtype=torch.long, device="cuda")
+
+    # Picard sweeps of the float32 expert (K4 in float32): after as many
+    # sweeps as time points the iteration has reached the sequential Euler
+    # solve's fixed point, which prob_flow_ode computes one step at a time
+    p32, = entry.load_unets([tree], dtype=torch.float32)
+    m32 = dataclasses.replace(model, dtype=torch.float32)
+
+    def score(x, t):
+        eps = m32.apply(p32, x, t, lab[:x.shape[0]])
+        return -eps / sched.sigma(t).reshape(-1, 1, 1, 1)
+    x = torch.randn(PPF_BATCH, SG_IMG, SG_IMG, 3, generator=gen,
+                    device="cuda")
+
+    def ppf():
+        with torch.inference_mode():
+            return samplers.parallel_prob_flow(score, sched, x, PPF_STEPS,
+                                               n_iters=PPF_STEPS)
+    reset_launches(kernels, attention)
+    (x_fin, resid), sec = timed(ppf)
+    counts = read_launches(kernels, attention)
+    with torch.inference_mode():
+        seq, sec_seq = timed(lambda: samplers.prob_flow_ode(
+            lambda xx, t: score(xx, t.expand(xx.shape[0])), sched, x,
+            PPF_STEPS))
+    scale = max(1.0, float(seq.abs().max()))
+    err = max_err(x_fin, seq)
+    log(f"parallel_prob_flow: the shape expert (float32, K4), batch "
+        f"{PPF_BATCH}, {PPF_STEPS} time points folded into {rows} rows, "
+        f"{PPF_STEPS} sweeps: {sec:.3f} s (prob_flow_ode, one step at a "
+        f"time: {sec_seq:.3f} s); residuals "
+        f"{[float(f'{float(r):.3g}') for r in resid]}; against "
+        f"prob_flow_ode: max |diff| {err:.3e} at scale {scale:.3g} (bar "
+        f"1e-3 of the scale); launches {counts}")
+    if counts["groupnorm_silu"] != 8 * PPF_STEPS or \
+            counts["groupnorm_silu_split"] != 2 * PPF_STEPS:
+        fail(f"parallel_prob_flow launched {counts}, expected "
+             f"{8 * PPF_STEPS} + {2 * PPF_STEPS} GroupNorm kernels")
+    if not err <= 1e-3 * scale:
+        fail("parallel_prob_flow's fixed point is not the sequential solve")
+    sync_free("parallel_prob_flow", lambda: ppf()[0])
+    del p32
+
+    probe_model, probe_params = probe
+    xg = torch.randn(CG_BATCH, SG_IMG, SG_IMG, 3, generator=gen,
+                     device="cuda")
+
+    def eps_fn(xx, t):
+        return model.apply(params, xx.bfloat16(), t.bfloat16(),
+                           lab[:xx.shape[0]]).float()
+
+    def ddim(fn):
+        with torch.no_grad():  # the guidance's gradient needs a graph
+            return samplers.ddim(fn, sched, xg, CG_STEPS)
+
+    def colors(o):
+        return probe_model.apply(probe_params, o.clamp(-1, 1))[1].argmax(-1)
+    # the color the probe reads least in the unguided circles is the target
+    target = int(torch.bincount(colors(ddim(eps_fn)), minlength=3).argmin())
+
+    def logp(xx, t):
+        return torch.log_softmax(probe_model.apply(probe_params, xx)[1],
+                                 dim=-1)[:, target]
+    guided = samplers.make_classifier_guided_eps_fn(eps_fn, sched, logp,
+                                                    CG_SCALE)
+    out, sec = timed(lambda: ddim(guided))
+    hits = [float((colors(o) == target).float().mean())
+            for o in (out, ddim(eps_fn))]
+    log(f"classifier-guided ddim: the shape expert's circles steered by the "
+        f"gate's probe to color {target} (the one it reads least unguided) "
+        f"at scale {CG_SCALE}, batch {CG_BATCH}, {CG_STEPS} steps: "
+        f"{sec:.3f} s; the probe reads color {target} in {hits[0]:.3f} of "
+        f"the guided samples, {hits[1]:.3f} of the unguided (not a "
+        f"condition)")
+    if not bool(torch.isfinite(out).all()):
+        fail("classifier-guided ddim's output is not finite")
+    sync_free("classifier-guided ddim", lambda: ddim(guided))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1648,6 +2018,10 @@ def main() -> int:
     rows.update(check_unet_kernels(kernels, attention))
     rows.update(check_latent_kernels(kernels, compose))
     ddpm_gn_rows = check_ddpm_gn_shapes(kernels)
+    # fused_dit_block at the shapes gate's DiT cells (phase 16): timed here,
+    # where traces keep their device records (after the profiles of the
+    # later phases, a CUDA-only trace came back without them)
+    k1_gate = k1_at(kernels, *SG_K1)
 
     # 4. main path
     trees = [convert.from_flax(convert.init_params(entry.FLAGSHIP, seed=i))
@@ -1756,15 +2130,22 @@ def main() -> int:
     by_path.update(ddim_family(card, convert, entry, unet, kernels,
                                attention, compose, samplers))
 
-    # 16. the kernels line, then the result line. launches: each kernel's
+    # 16. the shapes gate; 17. NLL and the last samplers on its expert
+    gate_run = shapes_gate_path(card, entry, dit, kernels, attention)
+    nll_and_samplers(card, entry, samplers, kernels, attention,
+                     gate_run["trees"]["unet64"][0], gate_run["probe"])
+    by_path["shapes_gate"] = gate_run["launches"]["unet64"]
+
+    # 18. the kernels line, then the result line. launches: each kernel's
     # count on the path that serves it (fused_dit_block: the DiT path;
     # short_seq_attention: fused_block=False; groupnorm_silu and its two-part
     # form groupnorm_silu_split (the same source; the JAX function it
     # carries is left to the compiler there): path A; flash_attention: path
     # B; blend_eps and matmul: the latent path under ddim); times at that
     # path's shape and dtype. The two GroupNorm rows also carry their
-    # launches on every UNet path (phases 7, 8, 11-15) and their numbers at
-    # the DDPM paths' shapes
+    # launches on every UNet path (phases 7, 8, 11-16) and their numbers at
+    # the DDPM paths' shapes; fused_dit_block's row its launches on the DiT
+    # path and on the shapes gate's DiT cells, and its numbers there
     src = "composable_diffusion_models_tpu_torch/csrc/"
     tpu = "composable_diffusion_models_tpu/ops/"
     line = {"kernels": [
@@ -1786,6 +2167,12 @@ def main() -> int:
              torch.float32),
             ("matmul", "matmul", "pallas_kernels.py:229", torch.float32))]}
     for row in line["kernels"]:
+        if row["name"] == "fused_dit_block":
+            row["launches_by_path"] = {
+                "dit": launches["fused_dit_block"],
+                "shapes_gate": gate_run["launches"]["dit_p8_d256_l8"][
+                    "fused_dit_block"]}
+            row["shapes_gate_shape"] = k1_gate
         if row["name"] in ("groupnorm_silu", "groupnorm_silu_split"):
             row["launches_by_path"] = {p: c[row["name"]]
                                        for p, c in by_path.items()}

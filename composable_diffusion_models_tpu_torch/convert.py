@@ -77,7 +77,7 @@ def param_shapes(cfg) -> Shapes:
 
 def _probe_shapes(cfg: ProbeClassifier) -> Shapes:
     out: Shapes = {}
-    cin = 1  # the digit probe reads one channel
+    cin = cfg.in_channels
     for i, mult in enumerate((1, 2, 4)):
         cout = cfg.base_dim * mult
         out[(f"conv_{i}", "kernel")] = ((3, 3, cin, cout), 9 * cin)
@@ -246,15 +246,18 @@ _ZERO_KERNELS = {"Dense_0", "final_mod", "unpatchify"}
 
 def flax_init(cfg, key: int, device="cpu") -> Dict[str, Any]:
     """A float32 tree distributed as the flax module's ``init`` makes it, for
-    a :class:`DiT` or a :class:`ProbeClassifier`, drawn through
-    ``rng.Draws(key, device)`` one leaf at a time in sorted key-path order:
-    kernels lecun-normal (N(0, 1/fan_in) truncated at two of its standard
-    deviations, rescaled as flax's ``variance_scaling`` does), biases zero,
-    the DiT's label embeddings N(0, 1/dim) and positions N(0, 0.02^2), and
-    its adaLN modulation and unpatchify kernels zero. The bits are not
-    flax's: the two frameworks draw differently."""
-    if not isinstance(cfg, (DiT, ProbeClassifier)):
-        raise TypeError(f"flax_init covers DiT and ProbeClassifier, got "
+    a :class:`DiT`, a :class:`UNet` or a :class:`ProbeClassifier`, drawn
+    through ``rng.Draws(key, device)`` one leaf at a time in sorted
+    key-path order: kernels lecun-normal (N(0, 1/fan_in) truncated at two
+    of its standard deviations, rescaled as flax's ``variance_scaling``
+    does), biases zero, norm scales one (no draw for either), label
+    embeddings N(0, 1/width), the DiT's positions N(0, 0.02^2) and its
+    adaLN modulation and unpatchify kernels zero. The bits are not flax's:
+    the two frameworks draw differently. UNet convolution kernels come out
+    HWIO, as flax stores them (``unet_torch_layout`` turns them for
+    ``UNet.apply``)."""
+    if not isinstance(cfg, (DiT, UNet, ProbeClassifier)):
+        raise TypeError(f"flax_init covers DiT, UNet and ProbeClassifier, got "
                         f"{type(cfg).__name__}")
     draws = Draws(key, device)
     params: Dict[str, Any] = {}
@@ -264,6 +267,8 @@ def flax_init(cfg, key: int, device="cpu") -> Dict[str, Any]:
             and path[-2] in _ZERO_KERNELS)
         if zero:
             val = torch.zeros(shape, device=device)
+        elif path[-1] == "scale":
+            val = torch.ones(shape, device=device)
         elif path[-1] == "embedding":
             val = draws.normal(shape) / math.sqrt(shape[-1])
         elif path[-1] == "pos_emb":

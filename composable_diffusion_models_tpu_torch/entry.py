@@ -58,6 +58,23 @@ And the training path, the protocol of ``scripts/quality_gate_flagship.py``:
   experts, each sampled solo and the three composed through :func:`sample`
   (the folded DiT on the ``fused_dit_block`` kernel), the probe's
   statistics, and the judge against a baseline report (``gate.py``).
+
+The shapes gate, the protocol of ``scripts/quality_gate_shapes.py``, and
+the NLL evaluator of ``scripts/eval_nll.py``:
+
+* :func:`train_shapes_experts`: a shape- and a color-conditional expert of
+  one gate configuration (``unet64``: bf16 compute, GroupNorm in PyTorch
+  ops; ``dit_p8_d256_l8``: float32 compute) trained on procedural 64 x 64
+  shapes made on the card.
+* :func:`quality_gate_shapes`: a two-factor probe, the experts of each
+  configuration served in bf16 through the bench program (the ``unet64``
+  cells through :func:`sample_shapes` on the ``groupnorm_silu`` kernel, the
+  DiT cells through :func:`sample`'s folded stack on ``fused_dit_block``),
+  the 9 (shape, color) cells scored, and the judge against the ``unet64``
+  baseline.
+* :func:`eval_nll`: per-example log-likelihood and bits/dim of a trained
+  expert by the probability-flow ODE (``samplers.log_likelihood``), its
+  jvps through the PyTorch-op GroupNorm.
 """
 
 from __future__ import annotations
@@ -115,17 +132,24 @@ SHAPES_LATENT_MLP = ScoreMLP(hidden=256, depth=3, out_dim=2)
 LATENT_OPS = ("ddim", "em", "avg", "ito")
 
 
-def gflop_per_image(n_steps: int = 50) -> float:
-    """Analytic GFLOP per sampled image of the flagship composer (matmul
-    MACs x 2): per block qkv + out 4ND^2, attention 2N^2D, MLP 8ND^2,
-    modulation 6D^2, plus the patchify and unpatchify GEMMs; 4.377 at 50
-    steps."""
-    cfg = FLAGSHIP
-    n_tok, dim = cfg.n_tokens, cfg.dim
+def dit_gflop_per_image(model: DiT) -> float:
+    """Analytic GFLOP of one DiT forward per image (MACs x 2), counted
+    from the configuration with N = ``n_tokens`` tokens of width D: per
+    block the q, k, v and out projections 4ND^2, the two attention products
+    2N^2D, the MLP 8ND^2 (width 4D) and the adaLN modulation 6D^2; the
+    patchify and unpatchify GEMMs 2ND P^2 C. The time and label towers, the
+    final modulation and the elementwise work are left out."""
+    n_tok, dim = model.n_tokens, model.dim
     per_block = (12 * n_tok * dim * dim + 2 * n_tok * n_tok * dim
                  + 6 * dim * dim)
-    patchify = 2 * n_tok * dim * cfg.patch * cfg.patch * cfg.in_channels
-    return 2.0 * (cfg.depth * per_block + patchify) * N_EXPERTS * n_steps / 1e9
+    patchify = 2 * n_tok * dim * model.patch ** 2 * model.in_channels
+    return 2.0 * (model.depth * per_block + patchify) / 1e9
+
+
+def gflop_per_image(n_steps: int = 50) -> float:
+    """Analytic GFLOP per sampled image of the flagship composer: three
+    :func:`dit_gflop_per_image` forwards a step; 4.377 at 50 steps."""
+    return dit_gflop_per_image(FLAGSHIP) * N_EXPERTS * n_steps
 
 
 def unet_gflop_per_image(model: UNet, h: int, w: int) -> float:
@@ -196,24 +220,31 @@ def load_unets(trees: Sequence[Any], device=None,
 @torch.inference_mode()
 def sample(params_list: Sequence[Any], x_init, n_steps: int = 50,
            fused_block: bool = True, device=None,
-           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Samples from the 3 composed experts: an fp32 (B, 28, 28, 1) batch.
+           dtype: torch.dtype = torch.bfloat16, labels: Sequence = (),
+           model: DiT = FLAGSHIP) -> torch.Tensor:
+    """Samples from the composed folded-DiT experts: an fp32 batch shaped
+    as ``x_init`` (the flagship's: (B, 28, 28, 1)).
 
     ``params_list``: the experts' parameter trees as torch tensors
     (``convert.from_flax``), cast here to ``dtype`` on the device unless
     :func:`load_experts` already put them there.
-    ``x_init``: (B, 28, 28, 1) initial noise. ``device=None`` is the CUDA
+    ``x_init``: the initial noise. ``device=None`` is the CUDA
     card (raises without one). ``dtype`` is the experts' compute type:
-    bf16 serves; fp32 holds the port to the JAX reference in tests."""
+    bf16 serves; fp32 holds the port to the JAX reference in tests.
+    ``model``: the experts' architecture (``FLAGSHIP``; the shapes gate's
+    ``dit_p8_d256_l8`` takes class labels). ``labels``: for a model with
+    label slots, one (K, 1) batch-constant label tensor per slot, row i
+    for expert i (the folded DiT folds them into its per-step weights)."""
     dev = resolve_device(device)
-    model = dataclasses.replace(FLAGSHIP, dtype=dtype)
+    model = dataclasses.replace(model, dtype=dtype)
     stack = ExpertStack(make_folded_apply(model, fused_block),
                         load_experts(params_list, dev, dtype))
     w = torch.ones((stack.k,), dtype=torch.float32, device=dev)
+    labs = [per_expert(torch.as_tensor(lab).to(dev)) for lab in labels]
 
     def eps_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         # bf16 experts inside the fp32 sampler, blended in fp32
-        return weighted(stack(x.to(dtype), t.to(dtype)).float(), w)
+        return weighted(stack(x.to(dtype), t.to(dtype), *labs).float(), w)
 
     x = torch.as_tensor(x_init, dtype=torch.float32).to(dev)
     return ddim(eps_fn, VPSchedule(), x, n_steps)
@@ -708,3 +739,308 @@ def quality_gate(train_steps: int = 12000, batch_size: int = 256,
         with open(os.path.join(out, f"quality_{cfg}{suffix}.json"), "w") as f:
             json.dump(report, f, indent=2)
     return report
+
+
+# ------------------------------------------------------------ shapes gate
+SHAPES_GATE_CONFIGS = ("unet64", "dit_p8_d256_l8")
+SHAPES_WORKLOAD = "shapes64_2expert_ddim50"
+
+
+def shapes_gate_model(name: str, img: int = 64) -> Tuple[Any, Any]:
+    """(training configuration, serving configuration) of a shapes-gate
+    configuration name, as ``scripts/quality_gate_shapes.py`` builds them:
+    ``unet<W>`` is a 3-channel UNet of base W, widths (W, 2W, 4W), one
+    3-class label slot, trained and served in bf16 compute (trained with
+    GroupNorm in PyTorch ops, served through the ``groupnorm_silu``
+    kernel); ``dit_p<P>_d<D>_l<L>[_h<H>]`` a DiT of patch P, width D, depth
+    L and H heads (8 by default) on img x img x 3, one 3-class label slot,
+    trained in float32 compute through the unfolded forward with the
+    einsum attention and served in bf16 through the folded path."""
+    if name.startswith("unet"):
+        m = UNet(in_channels=3, base_dim=int(name[4:]),
+                 channel_mults=(1, 2, 4), num_classes=(3,),
+                 dtype=torch.bfloat16)
+        return m, dataclasses.replace(m, fused_gn=True)
+    if name.startswith("dit"):
+        parts = {q[0]: int(q[1:]) for q in name.split("_")[1:]}
+        if img % parts["p"]:
+            raise ValueError(f"img {img} not divisible by patch {parts['p']}")
+        m = DiT(patch=parts["p"], dim=parts["d"], depth=parts["l"],
+                n_heads=parts.get("h", 8), in_channels=3, num_classes=(3,),
+                img_size=img)
+        return m, dataclasses.replace(m, dtype=torch.bfloat16)
+    raise ValueError(f"unknown config {name}")
+
+
+def train_shapes_experts(config: str = "unet64", steps: int = 12000,
+                         batch_size: int = 128, lr: float = 2e-4,
+                         ema: float = 0.999, snr_gamma: float = 0.0,
+                         clip_norm: float = 1.0, seed: int = 0,
+                         data_n: int = 8192, img: int = 64,
+                         dataset=None, device=None) -> Tuple[list, list]:
+    """Trains the shapes gate's shape- and color-conditional experts of
+    ``config`` (:func:`shapes_gate_model`) on ``make_shapes_dataset(data_n,
+    img)`` made on the device (``dataset``: that triple, already made),
+    with the script's keys: init ``fold_in(seed, 10 + i)``, training
+    ``fold_in(seed, 20 + i)``. eps-prediction on ``VPSchedule()``, Adam at
+    ``lr`` after the global-norm clip ``clip_norm``, EMA ``ema``, min-SNR
+    weighting ``snr_gamma`` (each 0: off). Returns (trees, losses): the EMA
+    trees (float32, on the device, in the layout ``apply`` reads; the
+    serving entry points take them as they are) and each expert's (steps,)
+    losses on the device. ``device=None`` is the CUDA card."""
+    dev = resolve_device(device)
+    model, _ = shapes_gate_model(config, img)
+    imgs, shape_labels, color_labels = (
+        dataset if dataset is not None
+        else data.make_shapes_dataset(data_n, img, device=dev))
+    trees, losses = [], []
+    for i, labels in enumerate((shape_labels, color_labels)):
+        p0 = flax_init(model, fold_in(seed, 10 + i), dev)
+        if isinstance(model, UNet):
+            p0 = unet_torch_layout(p0)
+        p, loss = train.train_expert(
+            fold_in(seed, 20 + i), model.apply, p0, VPSchedule(), imgs,
+            (labels,), steps=steps, batch_size=batch_size, lr=lr,
+            ema_decay=ema or None, snr_gamma=snr_gamma or None,
+            clip_norm=clip_norm or None)
+        trees.append(p)
+        losses.append(loss)
+    return trees, losses
+
+
+def _mean_pairwise_distance(feats: torch.Tensor) -> float:
+    """Mean Euclidean distance over the pairs of rows, in float64."""
+    f = feats.double()
+    d = torch.sqrt(torch.clamp(((f[:, None, :] - f[None, :, :]) ** 2)
+                               .sum(-1), min=0.0))
+    iu = torch.triu_indices(f.shape[0], f.shape[0], offset=1,
+                            device=f.device)
+    return float(d[iu[0], iu[1]].mean())
+
+
+def shapes_baseline(baseline: str, reports: dict) -> dict:
+    """The baseline report, as the script reads ``--baseline``: a path
+    ending in .json is loaded; otherwise the name of a configuration among
+    ``reports``; anything else raises."""
+    if baseline.endswith(".json"):
+        with open(baseline) as f:
+            return json.load(f)
+    if baseline in reports:
+        return reports[baseline]
+    raise ValueError(f"baseline {baseline!r} not found: name one of "
+                     f"{tuple(reports)} or a report .json")
+
+
+def quality_gate_shapes(configs: Union[str, Sequence[str]] =
+                        SHAPES_GATE_CONFIGS, baseline: str = "unet64",
+                        train_steps: int = 12000, batch_size: int = 128,
+                        lr: float = 2e-4, ema: float = 0.999,
+                        snr_gamma: float = 0.0, clip_norm: float = 1.0,
+                        probe_steps: int = 2000, samples_per_cell: int = 64,
+                        n_steps: int = 50, img: int = 64, data_n: int = 8192,
+                        tol: float = 0.02, div_frac: float = 0.5,
+                        fid_slack: float = 1.5, sanity: bool = False,
+                        out: Optional[str] = None, seed: int = 0,
+                        experts: Optional[dict] = None,
+                        device=None) -> dict:
+    """The protocol of ``scripts/quality_gate_shapes.py`` on the device
+    (``None``: the CUDA card). Returns {config: report}.
+
+    1. ``make_shapes_dataset(data_n, img)``; a two-factor probe (shape,
+       color) trained ``probe_steps`` with key fold_in(seed, 1), noise
+       augmentation 0.1; its held-in accuracy on the first 512 images
+       (``probe_heldin``, a key the script prints but does not save) and
+       the features of the first 2048 as the real statistics.
+    2. Per configuration, its shape and color experts
+       (:func:`train_shapes_experts`; ``experts``: {config: EMA trees}
+       already trained for this seed, to skip the training), cast to bf16.
+    3. The 9 (shape, color) cells, ``samples_per_cell`` each, ``n_steps``
+       of DDIM from noise drawn with fold_in(seed, 40 + 3 s + c), the two
+       experts' eps averaged (``compose.weighted``): ``unet`` configs
+       through :func:`sample_shapes` (per-sample (2, B) labels), ``dit``
+       configs through :func:`sample`'s folded stack (batch-constant (2, 1)
+       labels); samples clipped to [-1, 1]; per cell the probe's
+       compositional scores and the mean pairwise feature distance, and
+       over all cells the FID-lite against the real features.
+    4. ``gate.judge`` under ``gate.SHAPES_CRITERIA`` against ``baseline``
+       (a configuration run here, or the path of a report .json); a
+       candidate decided within sampling noise of a threshold is scored
+       again with 4x the samples and seed salt 1000. The baseline's own
+       verdict is "BASELINE".
+
+    ``sanity`` cuts every size as the script's ``--sanity`` does. With
+    ``out``, each report is written there as
+    ``quality_shapes_<config>[_s<train_steps>].json``. The script also saves
+    image grids; the port does not."""
+    dev = resolve_device(device)
+    configs = tuple(configs.split(",") if isinstance(configs, str)
+                    else configs)
+    if sanity:
+        train_steps, probe_steps = 40, 200
+        samples_per_cell, n_steps = 8, 4
+        data_n, batch_size, img = 512, 16, 16
+    full = data.make_shapes_dataset(data_n, img, device=dev)
+    full_imgs, full_s, full_c = full
+    probe, probe_params = ceval.train_probe(
+        fold_in(seed, 1), full_imgs, (full_s, full_c), num_classes=(3, 3),
+        steps=probe_steps, noise_aug=0.1)
+    heldin = ceval.probe_accuracy(probe, probe_params, full_imgs[:512],
+                                  (full_s[:512], full_c[:512]))
+    real_feats = ceval.probe_features(probe, probe_params, full_imgs[:2048])
+
+    reports, scorers = {}, {}
+    for cfg in configs:
+        train_model, serve_model = shapes_gate_model(cfg, img)
+        trees = (experts or {}).get(cfg)
+        if trees is None:
+            trees, _ = train_shapes_experts(
+                cfg, train_steps, batch_size, lr, ema, snr_gamma, clip_norm,
+                seed, data_n, img, dataset=full, device=dev)
+        is_unet = isinstance(train_model, UNet)
+        params = (load_unets(trees, dev) if is_unet
+                  else load_experts(trees, dev))
+
+        def score(bs: int, seed_salt: int, params=params, is_unet=is_unet,
+                  serve_model=serve_model) -> dict:
+            res = {"cells": {}, "composed": None}
+            joint, divs, feats_all = [], [], []
+            for s_ in range(3):
+                for c in range(3):
+                    x = Draws(fold_in(seed, seed_salt + 40 + 3 * s_ + c),
+                              dev).normal((bs, img, img, 3))
+                    if is_unet:
+                        labs = torch.tensor([[s_] * bs, [c] * bs], device=dev)
+                        samples = sample_shapes(params, x, labs, n_steps,
+                                                device=dev, model=serve_model)
+                    else:
+                        labs = torch.tensor([[s_], [c]], device=dev)
+                        samples = sample(params, x, n_steps, device=dev,
+                                         labels=(labs,), model=serve_model)
+                    samples = samples.clamp(-1.0, 1.0)
+                    scores = ceval.compositional_scores(
+                        probe, probe_params, samples, (s_, c))
+                    feats = ceval.probe_features(probe, probe_params, samples)
+                    feats_all.append(feats)
+                    divs.append(_mean_pairwise_distance(feats))
+                    res["cells"][f"{s_},{c}"] = scores
+                    joint.append(scores["joint_acc"])
+            res["composed"] = {
+                "joint_mean": float(np.mean(joint)),
+                "joint_min": float(np.min(joint)),
+                "diversity_mean": float(np.mean(divs)),
+                "diversity_min": float(np.min(divs)),
+                "fid_probe": round(ceval.frechet_probe_distance(
+                    torch.cat(feats_all), real_feats), 4),
+            }
+            return res
+
+        report = {"config": cfg, "workload": SHAPES_WORKLOAD,
+                  "train_steps": train_steps, "img": img,
+                  "snr_gamma": snr_gamma, "clip_norm": clip_norm,
+                  "n_samples": samples_per_cell, "probe_heldin": heldin,
+                  "cells": {}, "composed": None}
+        report.update(score(samples_per_cell, 0))
+        reports[cfg], scorers[cfg] = report, score
+
+    base = shapes_baseline(baseline, reports)
+    for cfg, report in reports.items():
+        verdict = gate.judge(report, base, tol, div_frac, fid_slack,
+                             criteria=gate.SHAPES_CRITERIA,
+                             n_samples=samples_per_cell)
+        if verdict.get("near_boundary") and report is not base \
+                and not sanity:
+            n_esc = 4 * samples_per_cell
+            first_pass = {"n_samples": samples_per_cell,
+                          "cells": report["cells"],
+                          "composed": report["composed"], **verdict}
+            esc = scorers[cfg](n_esc, 1000)
+            report["cells"], report["composed"] = (esc["cells"],
+                                                   esc["composed"])
+            report["n_samples"] = n_esc
+            report["escalation"] = {"first_pass": first_pass,
+                                    "escalated_n": n_esc,
+                                    "second_seed_salt": 1000}
+            verdict = gate.judge(report, base, tol, div_frac, fid_slack,
+                                 criteria=gate.SHAPES_CRITERIA,
+                                 n_samples=n_esc)
+        if report is base:
+            verdict["verdict"] = "BASELINE"
+        report.update(verdict)
+        report["baseline_config"] = base.get("config", baseline)
+        if out is not None:
+            os.makedirs(out, exist_ok=True)
+            suffix = "" if train_steps == 12000 else f"_s{train_steps}"
+            with open(os.path.join(out, f"quality_shapes_{cfg}{suffix}.json"),
+                      "w") as f:
+                json.dump(report, f, indent=2)
+    return reports
+
+
+# -------------------------------------------------------------------- NLL
+def eval_nll(params: Any, model: Any = SHAPES_UNET, dataset: str = "shapes",
+             dataset_kw: Optional[dict] = None, n_data: int = 256,
+             n_steps: int = 200, n_probes: int = 4, probe: str = "rademacher",
+             exact: bool = False, t_max: Optional[float] = None,
+             schedule: VPSchedule = VPSchedule(), predict: str = "eps",
+             conditional: bool = False,
+             label_slots: Optional[Sequence[int]] = None, seed: int = 42,
+             probes: Optional[torch.Tensor] = None, device=None) -> dict:
+    """The protocol of ``scripts/eval_nll.py`` on a parameter tree (the
+    script reads a checkpoint): per-example log p(x) of ``n_data`` images of
+    ``data.get_dataset(dataset, fold_in(seed, 7), n_data, **dataset_kw)``
+    under the expert (``model``: a UNet or DiT configuration; a UNet's
+    GroupNorm runs in PyTorch ops inside the jvps, whatever its
+    ``fused_gn``), by ``samplers.log_likelihood`` over ``n_steps`` with
+    ``n_probes`` Hutchinson probes drawn with fold_in(seed, 11) (``probes``:
+    (n_steps, n_probes, *images.shape) in their place) or the exact trace.
+
+    ``predict``: what the expert predicts (eps, x0 or v; v needs the
+    ``stable`` kind), turned into the score -eps / sigma. ``t_max`` defaults
+    to 0.99 under ``kind="rectified"`` (whose g^2 diverges at 1), else 1.
+    ``conditional`` passes the dataset's labels (``label_slots``: their
+    indices; by default the first as many as the model has slots).
+    Returns the script's report: ``nll_nats_mean``, ``bits_per_dim_mean``
+    and ``bits_per_dim_sem`` (population std / sqrt(n)) beside the
+    settings. ``device=None`` is the CUDA card."""
+    if predict == "v" and schedule.kind != "stable":
+        raise ValueError("predict='v' identities need "
+                         "VPSchedule(kind='stable') (alpha^2 + sigma^2 = 1)")
+    dev = resolve_device(device)
+    if isinstance(model, UNet):
+        model = dataclasses.replace(model, fused_gn=False)
+        tree, = load_unets([params], dev, torch.float32)
+    else:
+        tree, = load_experts([params], dev, torch.float32)
+    images, *labels = data.get_dataset(dataset, fold_in(seed, 7), n_data,
+                                       device=dev, **(dataset_kw or {}))
+    if not conditional:
+        labels = []
+    elif label_slots is not None:
+        labels = [labels[i] for i in label_slots]
+    else:
+        labels = labels[:len(model.num_classes)]
+
+    def score_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        eps = model.apply(tree, x, t * torch.ones(x.shape[0], device=dev),
+                          *labels)
+        if predict == "x0":  # eps from the x0 estimate
+            eps = (x - schedule.alpha(t) * eps) / schedule.sigma(t)
+        elif predict == "v":
+            eps = schedule.sigma(t) * x + schedule.alpha(t) * eps
+        return -eps / schedule.sigma(t)
+
+    if t_max is None:
+        t_max = 0.99 if schedule.kind == "rectified" else 1.0
+    with torch.no_grad():  # forward-mode AD: not inference_mode
+        ll, _ = samplers.log_likelihood(
+            score_fn, schedule, images, n_steps, key=fold_in(seed, 11),
+            probe=probe, n_probes=n_probes, exact=exact, t_max=t_max,
+            probes=None if probes is None else probes.to(dev))
+    bpd = samplers.bits_per_dim(ll, images.shape[1:])
+    return {"dataset": dataset, "n_data": n_data, "n_steps": n_steps,
+            "n_probes": n_probes, "probe": probe, "exact": bool(exact),
+            "t_max": t_max, "schedule_kind": schedule.kind,
+            "nll_nats_mean": -float(ll.mean()),
+            "bits_per_dim_mean": float(bpd.mean()),
+            "bits_per_dim_sem": float(bpd.std(correction=0)
+                                      / math.sqrt(bpd.shape[0]))}

@@ -49,7 +49,8 @@ def train_probe(key, images: torch.Tensor, labels: Sequence[torch.Tensor], *,
     flax init's distribution is drawn with the key (``convert.flax_init``)."""
     if num_classes is None:
         num_classes = [int(lab.max()) + 1 for lab in labels]
-    model = ProbeClassifier(tuple(num_classes), base_dim, dtype)
+    model = ProbeClassifier(tuple(num_classes), base_dim, dtype,
+                            in_channels=images.shape[-1])
     key = as_draws(key, images.device)
     if params is None:
         params = flax_init(model, key.key, images.device)

@@ -1,4 +1,4 @@
-"""The flagship quality gate: its criteria, its judge and its verdicts.
+"""The quality gates: their criteria, their judge and their verdicts.
 
 The port's own copy of ``bench.gate_verdict`` (which reads the committed
 ``artifacts/quality_gate*/quality_<flagship>*.json`` reports) and of
@@ -14,6 +14,11 @@ composed in-union fraction, the least solo in-subset fraction and the
 composed class entropy within ``tol`` of the baseline's; the composed
 within-class diversity at least ``div_frac`` of the baseline's; and the
 composed FID-lite at most ``fid_slack`` times the baseline's.
+
+The shapes gate (``entry.quality_gate_shapes``, the protocol of
+``scripts/quality_gate_shapes.py``) judges its reports by the same
+``judge`` under ``SHAPES_CRITERIA``: the 9 (shape, color) cells' mean and
+least joint accuracy, their mean diversity and the FID-lite of all cells.
 """
 
 from __future__ import annotations
@@ -42,6 +47,19 @@ GATE_CRITERIA = (
     ("composed_entropy", lambda r: r["composed"]["class_entropy"], ">=",
      "tol"),
     ("composed_diversity", lambda r: r["composed"]["diversity_mean"], ">=",
+     "frac"),
+    ("composed_fid", lambda r: r["composed"]["fid_probe"], "<=", "slack"),
+)
+
+
+# the shapes gate's criteria (scripts/quality_gate_shapes.py): the mean and
+# the least of the 9 cells' joint accuracies within tol of the baseline's,
+# the mean per-cell diversity at least div_frac of it, FID-lite at most
+# fid_slack times it
+SHAPES_CRITERIA = (
+    ("cell_joint_mean", lambda r: r["composed"]["joint_mean"], ">=", "tol"),
+    ("cell_joint_min", lambda r: r["composed"]["joint_min"], ">=", "tol"),
+    ("cell_diversity", lambda r: r["composed"]["diversity_mean"], ">=",
      "frac"),
     ("composed_fid", lambda r: r["composed"]["fid_probe"], "<=", "slack"),
 )

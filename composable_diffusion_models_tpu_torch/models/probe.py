@@ -28,11 +28,14 @@ def _same_pads(size: int, k: int = 3, stride: int = 2) -> Tuple[int, int]:
 @dataclasses.dataclass(frozen=True)
 class ProbeClassifier:
     """``num_classes``: one head per factor; ``dtype``: the trunk's compute
-    type (None: the input's), the heads are float32."""
+    type (None: the input's), the heads are float32. ``in_channels`` is the
+    images' (flax infers it from the input at init; ``convert.flax_init``
+    and ``convert.param_shapes`` read it here)."""
 
     num_classes: Tuple[int, ...] = (3, 3)
     base_dim: int = 32
     dtype: Optional[torch.dtype] = None
+    in_channels: int = 1
 
     def __post_init__(self):
         object.__setattr__(self, "num_classes", tuple(self.num_classes))

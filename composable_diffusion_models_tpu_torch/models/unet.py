@@ -1,12 +1,12 @@
 """Score UNet: eps_hat(x_t, t [, labels...]) over NHWC images.
 
-Port of ``composable_diffusion_models_tpu.models.unet`` (inference: dropout
-is off). Same parameter tree as the flax ``UNet`` after
-``convert.from_flax`` and ``convert.unet_torch_layout`` (conv kernels
-HWIO -> OIHW once at load, stored under ``weight``). Public shapes are NHWC
-as in the JAX package; every activation is a contiguous (B, H, W, C)
-tensor, which is what the ``groupnorm_silu`` kernel reads, and the
-convolutions see it as a channels-last NCHW view without a copy.
+Port of ``composable_diffusion_models_tpu.models.unet``. Same parameter
+tree as the flax ``UNet`` after ``convert.from_flax`` and
+``convert.unet_torch_layout`` (conv kernels HWIO -> OIHW once at load,
+stored under ``weight``). Public shapes are NHWC as in the JAX package;
+every activation is a contiguous (B, H, W, C) tensor, which is what the
+``groupnorm_silu`` kernel reads, and the convolutions see it as a
+channels-last NCHW view without a copy.
 
 Compute-dtype rules follow flax: parameters are cast to ``dtype`` at use
 (``None``: the input's dtype), GroupNorm + SiLU and LayerNorm take their
@@ -22,6 +22,14 @@ runs both through the PyTorch-op composition
 branch, and launches no GroupNorm kernel. ``flash_attn`` keeps its name: ``True`` routes the
 cross-attention through the ``flash_attention`` kernel, ``False`` through
 two einsums.
+
+Training: :meth:`UNet.apply` is differentiable with ``fused_gn=False`` (no
+kernel has a backward; the GroupNorm wrappers refuse inputs that require
+grad). ``train=True`` applies the module's dropout (rate ``dropout``, 0.1)
+after each residual block's second GroupNorm + SiLU, as flax's
+``nn.Dropout``: keep with probability 1 - rate, kept values divided by it,
+the masks drawn from the caller's ``torch.Generator``. No caller in the JAX
+package trains with it; every UNet there trains with dropout off.
 """
 
 from __future__ import annotations
@@ -52,7 +60,10 @@ def _interp_matrix(n: int, device: torch.device,
     pos = (np.arange(2 * n, dtype=np.float64) + 0.5) / 2.0 - 0.5
     w = np.maximum(0.0, 1.0 - np.abs(pos[:, None] - np.arange(n)[None, :]))
     w = (w / w.sum(axis=1, keepdims=True)).astype(np.float32)
-    return torch.from_numpy(w).to(device, dtype)
+    # a normal tensor even when first built by a forward in inference mode:
+    # a later training forward saves it for its backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(w).to(device, dtype)
 
 
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -128,10 +139,24 @@ def gn_silu(p, x, dtype, fused_gn: bool):
                                     groups=groups)[0].to(dtype)
 
 
-def res_block(p, x, t_emb, dtype, fused_gn: bool, skip=None) -> torch.Tensor:
-    """GN+SiLU+3x3 conv -> + time projection -> GN+SiLU+3x3 conv ->
-    + residual (1x1 conv where the width changes). ``skip`` is treated as
-    concat([x, skip], -1) without materialising the concat."""
+def dropout(h: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: each element kept with probability
+    1 - rate (a uniform draw below it) and divided by it, else 0."""
+    if rate <= 0.0:
+        return h
+    keep_prob = 1.0 - rate
+    keep = torch.rand(h.shape, generator=generator, device=h.device) < keep_prob
+    return torch.where(keep, h / keep_prob, torch.zeros((), dtype=h.dtype,
+                                                        device=h.device))
+
+
+def res_block(p, x, t_emb, dtype, fused_gn: bool, skip=None,
+              drop=None) -> torch.Tensor:
+    """GN+SiLU+3x3 conv -> + time projection -> GN+SiLU (-> ``drop``, the
+    training dropout) -> 3x3 conv -> + residual (1x1 conv where the width
+    changes). ``skip`` is treated as concat([x, skip], -1) without
+    materialising the concat."""
     parts = (x,) if skip is None else (x, skip)
     in_ch = sum(part.shape[-1] for part in parts)
     out_ch = p["Conv_1"]["weight"].shape[0]
@@ -143,6 +168,8 @@ def res_block(p, x, t_emb, dtype, fused_gn: bool, skip=None) -> torch.Tensor:
     temb = _dense(F.silu(t_emb), p["Dense_0"], dtype)
     h = h + temb[:, None, None, :]
     h = gn_silu(p["gn2"], h, dtype, fused_gn)
+    if drop is not None:
+        h = drop(h)
     h = _conv(h, p["Conv_1"]["weight"], p["Conv_1"]["bias"], dtype)
     if in_ch == out_ch:
         if skip is not None:
@@ -203,6 +230,7 @@ class UNet:
     time_emb_dim: int = 256
     num_classes: Tuple[int, ...] = ()
     null_token: bool = False
+    dropout: float = 0.1
     cross_attn: bool = False
     flash_attn: bool = False
     attn_heads: int = 4
@@ -211,12 +239,23 @@ class UNet:
     fused_gn: bool = False
     pad_to: Optional[int] = None
 
-    def apply(self, params: Any, x: torch.Tensor, t, *labels) -> torch.Tensor:
+    def apply(self, params: Any, x: torch.Tensor, t, *labels,
+              train: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """eps_hat for NHWC ``x`` (B, H, W, C), ``t`` a scalar or (B,), one
-        integer (B,) label per slot of ``num_classes``; float32 output."""
+        integer (B,) label per slot of ``num_classes``; float32 output.
+        ``train=True`` applies the dropout, its masks drawn from
+        ``generator`` (a ``torch.Generator`` on x's device)."""
         p = params["params"]
         if x.dim() != 4:
             raise ValueError(f"expected NHWC input, got {tuple(x.shape)}")
+        drop = None
+        if train and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError("train=True draws dropout masks: pass a "
+                                 "torch.Generator")
+            drop = functools.partial(dropout, rate=self.dropout,
+                                     generator=generator)
         dtype = self.dtype or x.dtype
         orig_hw = tuple(x.shape[1:3])
         padded = bool(self.pad_to) and orig_hw != (self.pad_to, self.pad_to)
@@ -247,7 +286,8 @@ class UNet:
                 t_emb = t_emb + sum(embs)
 
         def block(name, h, skip=None):
-            return res_block(p[name], h, t_emb, dtype, self.fused_gn, skip)
+            return res_block(p[name], h, t_emb, dtype, self.fused_gn, skip,
+                             drop)
 
         def attend(name, h):
             if context is None:

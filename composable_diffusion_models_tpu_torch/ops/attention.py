@@ -5,7 +5,8 @@ The kernel (``csrc/flash_attention.cu``) is hand-written CUDA C++ for
 Hopper, built at first use and called through ctypes. On CPU tensors the
 wrapper returns the plain version; on CUDA tensors it launches the kernel
 on the current stream, raises if the launch fails, and adds one to its
-``launches`` count. A CUDA tensor never takes the plain version.
+``launches`` count. A CUDA tensor never takes the plain version, and no
+input may require grad or carry a tangent (``kernels.no_autodiff``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import library
-from .kernels import _DTYPE_CODE, _ptr, _stream_ptr
+from .kernels import _DTYPE_CODE, _ptr, _stream_ptr, no_autodiff
 
 _HEAD_DIMS = (16, 32, 64, 128)
 # flash_attention's routes and the limits that pick them (measured on the
@@ -121,6 +122,7 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     multiples of 4 elements, 16-byte aligned), never as if contiguous.
     :func:`flash_route` picks the kernel route from the dtype, H, Nk, the
     padded D and the strides."""
+    no_autodiff("flash_attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name}: expected (B, H, N, D), got "

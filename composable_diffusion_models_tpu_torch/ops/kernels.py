@@ -12,16 +12,24 @@ wrapper validates its inputs, and then:
 * for tensors on the CUDA card, launches the kernel on the current stream,
   raises if the launch fails, and adds one to its ``launches`` count.
 
-A CUDA tensor never takes the plain version. The plain versions follow the
-TPU kernels' rounding sites (composable_diffusion_models_tpu/ops/
-pallas_kernels.py): fp32 scores and softmax, probabilities rounded to the
-input type before the value product, GEMMs accumulated in fp32 with the
-bias added in fp32 and one rounding after it, residual adds in the stream
-type. Between two such roundings the bfloat16 kernels evaluate the GELU
-(``fused_dit_block``) and the sigmoid (``groupnorm_silu``) as
-x / (1 + exp(-z)) with the card's approximate exp and reciprocal (~2
-float32 ulps, far inside the bf16 rounding that follows); the float32
-kernels use the plain versions' tanh, exp and division. On the card, compare them with TF32 off
+A CUDA tensor never takes the plain version. No kernel has a backward or a
+forward-mode rule (nor has any TPU kernel), and a launch writes a fresh
+tensor that carries neither: so every wrapper refuses, on every device, an
+input that requires grad under grad mode or that carries a forward-mode
+tangent (``torch.func.jvp``, a ``forward_ad`` dual), instead of dropping
+the derivative. Differentiate the PyTorch-op paths (``fused_gn=False``,
+``flash_attn=False``, ``pallas_attn=False``, ``compose.weighted``).
+
+The plain versions follow the TPU kernels' rounding sites
+(composable_diffusion_models_tpu/ops/pallas_kernels.py): fp32 scores and
+softmax, probabilities rounded to the input type before the value product,
+GEMMs accumulated in fp32 with the bias added in fp32 and one rounding
+after it, residual adds in the stream type. Between two such roundings the
+bfloat16 kernels evaluate the GELU (``fused_dit_block``) and the sigmoid
+(``groupnorm_silu``) as x / (1 + exp(-z)) with the card's approximate exp
+and reciprocal (~2 float32 ulps, far inside the bf16 rounding that
+follows); the float32 kernels use the plain versions' tanh, exp and
+division. On the card, compare them with TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, likewise cudnn).
 """
 
@@ -31,7 +39,9 @@ import ctypes
 import functools
 
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from ._build import library
 
@@ -98,6 +108,23 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def no_autodiff(name: str, *tensors: torch.Tensor) -> None:
+    """Raises where a launch would drop a derivative: an input that
+    requires grad while grad mode is on, one wrapped by a ``torch.func``
+    transform (``jvp``, ``grad``, ``vmap``), or a ``forward_ad`` dual."""
+    grad = torch.is_grad_enabled()
+    dual = fwAD._current_level >= 0
+    for t in tensors:
+        if ((grad and t.requires_grad) or is_functorch_wrapped_tensor(t)
+                or (dual and fwAD.unpack_dual(t).tangent is not None)):
+            raise RuntimeError(
+                f"{name} has no backward or forward-mode rule, and an input "
+                f"requires grad or carries a tangent: run it under "
+                f"torch.no_grad() on plain tensors, or differentiate the "
+                f"PyTorch-op path (fused_gn=False, flash_attn=False, "
+                f"pallas_attn=False, compose.weighted)")
+
+
 def _check_stream_tensor(name: str, t: torch.Tensor) -> None:
     if t.dim() != 3:
         raise ValueError(f"{name}: expected (B, T, C), got {tuple(t.shape)}")
@@ -140,6 +167,7 @@ def short_seq_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
 
     Kernel limits: float32 or bfloat16, contiguous, head width in
     (8, 16, 32, 64), any B and T."""
+    no_autodiff("short_seq_attention", qkv)
     _check_stream_tensor("qkv", qkv)
     b, t, d3 = qkv.shape
     if d3 % 3 or (d3 // 3) % n_heads:
@@ -218,6 +246,8 @@ def fused_dit_block(tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2, b2,
     contiguous), D a multiple of 32, head width D / n_heads in (16, 32), and
     one image per block (:func:`block_rows`): T <= 64, and in float32
     T * D small enough for shared memory (T <= 32 at D = 256)."""
+    no_autodiff("fused_dit_block", tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2,
+                b2)
     _check_stream_tensor("tok", tok)
     b, t, d = tok.shape
     if d % 32 or d % n_heads or d // n_heads not in _BLOCK_HEAD_DIMS:
@@ -371,6 +401,7 @@ def groupnorm_silu(x, scale, bias, groups: int = 8,
     NCHW view raises: the kernel reads ``data_ptr()`` as (B, HW, C)); C a
     multiple of 16 bytes of elements (4 float32, 8 bfloat16) and at most
     256 such vectors."""
+    no_autodiff("groupnorm_silu", x, scale, bias)
     _gn_check(x, scale, bias, groups)
     if not x.is_contiguous():
         raise ValueError(
@@ -438,6 +469,7 @@ def groupnorm_silu_split(parts, scale, bias, groups: int = 8,
     the same B, H and W; every C_p a multiple of 16 bytes of elements and
     at most 256 such vectors."""
     parts = tuple(parts)
+    no_autodiff("groupnorm_silu_split", *parts, scale, bias)
     if not 1 <= len(parts) <= 2:
         raise ValueError(f"groupnorm_silu_split takes one or two parts, got "
                          f"{len(parts)}")
@@ -513,6 +545,8 @@ def blend_eps(eps_stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     ``weights`` a (K,) float32 tensor on the stack's device. The per-sample
     (K, B) weights that ``compose.weighted`` also takes are not the
     kernel's and raise: call ``compose.weighted`` with them."""
+    no_autodiff("blend_eps", eps_stack,
+                *((weights,) if isinstance(weights, torch.Tensor) else ()))
     if eps_stack.dim() < 2 or eps_stack.shape[0] < 1:
         raise ValueError(f"eps_stack: expected (K, B, ...) with K >= 1, got "
                          f"{tuple(eps_stack.shape)}")
@@ -615,6 +649,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     place, a contiguous one is read faster). The TPU function's ``tile_m``
     and ``tile_n`` are not kept: :func:`matmul_route` picks the kernel
     route from the dtype, shape and strides."""
+    no_autodiff("matmul", a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} are not (M, K) and (K, N)")

@@ -11,10 +11,10 @@ Port of ``composable_diffusion_models_tpu.samplers``:
   the Ito density estimator (``superdiff``: OR, AND heuristic, FIXED, AVG),
   the rigorous AND by a K x K linear system (``superdiff_and_solve``) and
   spatial-mask layout composition (``layout``);
-* ``make_cfg_eps_fn``.
-
-Still to port: ``make_classifier_guided_eps_fn``, ``parallel_prob_flow``,
-``log_likelihood`` and ``bits_per_dim``.
+* ``make_cfg_eps_fn`` and ``make_classifier_guided_eps_fn``;
+* ``parallel_prob_flow`` (Picard sweeps in time), ``log_likelihood`` (the
+  probability-flow ODE forward with the change-of-variables integral) and
+  ``bits_per_dim``.
 
 Each JAX ``lax.scan`` over a precomputed table becomes a Python loop; the
 tables stay on the host with the per-step coefficients computed there in
@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from . import compose
-from .ops.divergence import PROBE_KINDS, draw_probe, value_and_div
+from .ops.divergence import PROBE_KINDS, draw_probe, exact_div, value_and_div
 from .rng import as_draws
 from .schedules import DDPMSchedule, VPSchedule, linspace
 
@@ -248,6 +248,31 @@ def make_cfg_eps_fn(apply_fn: Callable[..., torch.Tensor],
         return compose.cfg(out[0], out[1:], weights)
 
     return eps_fn
+
+
+def make_classifier_guided_eps_fn(eps_fn: EpsFn, schedule: VPSchedule,
+                                  logp_fn: Callable[[torch.Tensor,
+                                                     torch.Tensor],
+                                                    torch.Tensor],
+                                  scale=1.0) -> EpsFn:
+    """Classifier guidance: eps'(x, t) = eps(x, t) - scale sigma(t)
+    grad_x sum log p(y | x_t), the gradient taken by autograd through
+    ``logp_fn(x, t) -> (B,)``, the target class's log-probability under a
+    noise-aware classifier. ``scale``: a number or ``scale(t)``. The
+    sampler around it must run under ``torch.no_grad()`` (or with grad
+    on), not ``torch.inference_mode()``: the gradient needs a graph."""
+    def guided(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        eps = eps_fn(x, t)
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            g, = torch.autograd.grad(logp_fn(xx, t).sum(), xx)
+        sig = torch.as_tensor(schedule.sigma(t), device=x.device)
+        if sig.dim():  # per-sample t: broadcast over the trailing dims
+            sig = sig.reshape(tuple(sig.shape) + (1,) * (x.dim() - sig.dim()))
+        s = scale(t) if callable(scale) else scale
+        return eps - s * sig * g
+
+    return guided
 
 
 # --------------------------------------------------------- Euler-Maruyama
@@ -653,3 +678,135 @@ def layout(eps_stack_fn: EpsStackFn, sde: DDPMSchedule,
         z = _normal(noise, generator, i, x)
         x = mean + sd * z if ti > 0 else mean
     return _clip(x, clip)
+
+
+# ------------------------------------------- parallel-in-time prob. flow
+def parallel_prob_flow(score_fn: EpsFn, schedule: VPSchedule,
+                       x_init: torch.Tensor, n_steps: int, n_iters: int = 12,
+                       t_max: float = 1.0, t_min: float = 1e-3
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The probability-flow ODE of :func:`prob_flow_ode` (Euler, the same
+    grid, ``score_fn`` the TRUE score) solved by Picard iteration in time:
+    the Euler trajectory is the fixed point of X[j] = x_init - sum_{i<j}
+    dxdt(X[i], t_i) dt. Each of ``n_iters`` sweeps evaluates the score at
+    all ``n_steps`` grid points in one forward (time folded into the batch
+    axis: the model sees n_steps x B rows) and integrates by a prefix sum.
+    Returns (x_final, residuals): residuals[k] = max |update| of sweep k,
+    an (n_iters,) tensor on x's device (never read back here)."""
+    table = schedule.ode_table(n_steps, t_max, t_min)
+    ts, dloga, g2, dt = (compose.constant(table[:, i].tolist(), torch.float32,
+                                          x_init.device) for i in (0, 1, 2, 4))
+    b, feat = x_init.shape[0], tuple(x_init.shape[1:])
+
+    def col(v):  # (n,) -> (n, 1, ...) against (n, B, ...)
+        return v.reshape((-1,) + (1,) * (1 + len(feat)))
+
+    flat_t = ts[:, None].expand(n_steps, b).reshape(-1)
+    traj = x_init.expand((n_steps,) + tuple(x_init.shape))
+    x_final, residuals = x_init, []
+    for _ in range(n_iters):
+        s = score_fn(traj.reshape((n_steps * b,) + feat),
+                     flat_t).reshape((n_steps, b) + feat)
+        steps = (col(dloga) * traj - 0.5 * col(g2) * s) * col(dt)
+        csum = torch.cumsum(steps, dim=0)
+        new = torch.cat([x_init[None], x_init[None] - csum[:-1]], dim=0)
+        residuals.append((new - traj).abs().max())
+        traj, x_final = new, x_init - csum[-1]
+    return x_final, torch.stack(residuals)
+
+
+# ---------------------------------------- log-likelihood and bits per dim
+def _ll_probes(key, x: torch.Tensor, probe: str, n_probes: int):
+    """One step's probes from ``key`` (a ``rng.Draws``) split as the JAX
+    ``value_and_div`` splits its key: one probe from the key itself, or one
+    from each of ``n_probes`` subkeys. A Rademacher probe is a {0, 1} draw
+    times 2 minus 1."""
+    keys = [key] if n_probes == 1 else key.split(n_probes)
+    out = []
+    for k in keys:
+        if probe == "rademacher":
+            out.append(k.randint(x.shape, 2).to(x.dtype) * 2.0 - 1.0)
+        else:
+            out.append(k.normal(x.shape, x.dtype))
+    return torch.stack(out)
+
+
+def log_likelihood(score_fn: EpsFn, schedule: VPSchedule,
+                   x_data: torch.Tensor, n_steps: int, key=None,
+                   probe: str = "rademacher", n_probes: int = 1,
+                   exact: bool = False, t_min: float = 1e-3,
+                   t_max: float = 1.0,
+                   probes: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-example log p(x) in nats under a score model, and the terminal
+    latent: the probability-flow ODE dx/dt = f(x, t) = dlog_alpha/dt x -
+    0.5 g^2 score integrated FORWARD (Euler, ``n_steps`` from ``t_min`` to
+    ``t_max``) with d log p / dt = -div f, so
+
+        log p(x) = log N(x(t_max); 0, v I) + int div f dt,
+
+    v = alpha(t_max)^2 + sigma(t_max)^2. ``score_fn(x, t)`` returns the TRUE
+    score (an eps model as -eps_hat / sigma).
+
+    The divergence: Hutchinson probes (``probe``, ``n_probes``), one
+    ``torch.func.jvp`` per probe through ``ops.divergence.value_and_div``,
+    drawn from ``key`` (an int key, an ``rng.Draws`` or a ``rng.Replay``)
+    with the JAX function's structure (the key folded with 0 at every step,
+    split in ``n_probes`` when there are several), or handed in as
+    ``probes`` (n_steps, n_probes, *x.shape); with ``exact=True`` the exact
+    Jacobian trace, one jvp per dimension (tiny dims only). Runs
+    forward-mode AD: call it under ``torch.no_grad()``, not
+    ``torch.inference_mode()``."""
+    if not exact and key is None and probes is None:
+        raise ValueError("log_likelihood needs a PRNG key unless exact=True")
+    if probe not in PROBE_KINDS:
+        raise ValueError(f"unknown probe kind: {probe!r}")
+    if probes is not None and tuple(probes.shape) != (
+            (n_steps, n_probes) + tuple(x_data.shape)):
+        raise ValueError(f"probes: shape {tuple(probes.shape)}, expected "
+                         f"{(n_steps, n_probes) + tuple(x_data.shape)}")
+    dt = (t_max - t_min) / n_steps
+    ts_host = t_min + dt * torch.arange(n_steps, dtype=torch.float32)
+    ts = compose.constant(ts_host.tolist(), torch.float32, x_data.device)
+    rows = zip(schedule.dlog_alpha_dt(ts_host).tolist(),
+               (0.5 * schedule.g2(ts_host)).tolist())
+    draws = None if (exact or probes is not None) else as_draws(
+        key, x_data.device)
+    b = x_data.shape[0]
+    x = x_data
+    delta = torch.zeros((b,), dtype=torch.float32, device=x.device)
+    for i, (dloga, half_g2) in enumerate(rows):
+        t = ts[i]
+
+        def f(xx, t=t, dloga=dloga, half_g2=half_g2):
+            return dloga * xx - half_g2 * score_fn(xx, t)
+
+        if exact:
+            fx, div = exact_div(lambda v: f(v.reshape(x.shape)).reshape(b, -1),
+                                x.reshape(b, -1))
+            fx = fx.reshape(x.shape)
+        else:
+            if probes is None:
+                draws = draws.fold_in(0)
+                v = _ll_probes(draws, x, probe, n_probes)
+            else:
+                v = probes[i]
+            fx, div = value_and_div(f, x, probes=v)
+        x = x + fx * dt
+        delta = delta + div * dt
+    t_end = torch.tensor(t_max, dtype=torch.float32)
+    prior_var = float(schedule.alpha(t_end) ** 2 + schedule.sigma(t_end) ** 2)
+    dim = math.prod(x_data.shape[1:])
+    axes = tuple(range(1, x.dim()))
+    log_prior = (-0.5 * (x * x).sum(dim=axes) / prior_var
+                 - 0.5 * dim * math.log(2.0 * math.pi * prior_var))
+    return log_prior + delta, x
+
+
+def bits_per_dim(log_p: torch.Tensor, data_shape: Sequence[int],
+                 nbins: int = 256) -> torch.Tensor:
+    """log p(x) in nats of data in [-1, 1] -> bits per dimension under
+    uniform dequantization of ``nbins`` levels (bin width 2 / nbins):
+    -log_p / (D ln 2) + log2(nbins / 2)."""
+    dim = math.prod(data_shape)
+    return -log_p / (dim * math.log(2.0)) + math.log2(nbins / 2.0)

@@ -583,3 +583,49 @@ def test_ddpm_paths_launch_groupnorm_silu():
             want = (8 * forwards, 2 * forwards) if fused else (0, 0)
             assert (kernels.groupnorm_silu.launches - n0[0],
                     kernels.groupnorm_silu_split.launches - n0[1]) == want
+
+
+@pytest.mark.parametrize("b", [1, 5, 64])
+def test_block_kernel_at_the_shapes_gate_width(b):
+    """K1 at the shapes gate's DiT cells: 64 tokens (dit_p8_d256_l8 at
+    64 x 64, one image a block) of width 256, 8 heads, bf16: 4 bf16 ulps
+    of the scale."""
+    args = _block_args(b, 64, 256, torch.bfloat16, seed=b)
+    got = kernels.fused_dit_block(*args, 8)
+    ref = kernels.fused_dit_block_ref(*args, 8)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((got.float() - ref.float()).abs().max()) <= \
+        4 * 2.0 ** -8 * scale
+
+
+def test_shapes_gate_dit_cell_launches_the_block_kernel():
+    """The gate's DiT candidate served as its cells are: two experts,
+    batch-constant (2, 1) labels, depth 8 x 2 experts launches a step."""
+    _, serve = entry.shapes_gate_model("dit_p8_d256_l8", 64)
+    trees = [convert.from_flax(convert.init_params(serve, seed=i))
+             for i in range(2)]
+    x = torch.randn(4, 64, 64, 3, device="cuda")
+    n0 = kernels.fused_dit_block.launches
+    out = entry.sample(trees, x, n_steps=2, model=serve,
+                       labels=(torch.tensor([[0], [2]]),))
+    torch.cuda.synchronize()
+    assert kernels.fused_dit_block.launches - n0 == 8 * 2 * 2
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+
+
+def test_wrappers_refuse_autodiff_on_the_card():
+    """A CUDA input that requires grad under grad mode, or a forward-mode
+    dual, raises before any launch; under no_grad the kernel launches."""
+    x = torch.randn(2, 8, 8, 16, device="cuda", requires_grad=True)
+    s, b = torch.ones(16, device="cuda"), torch.zeros(16, device="cuda")
+    n0 = kernels.groupnorm_silu.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernels.groupnorm_silu(x, s, b, 8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        torch.func.jvp(lambda v: kernels.groupnorm_silu(v, s, b, 8),
+                       (x.detach(),), (torch.ones_like(x),))
+    assert kernels.groupnorm_silu.launches == n0
+    with torch.no_grad():
+        kernels.groupnorm_silu(x, s, b, 8)
+    assert kernels.groupnorm_silu.launches == n0 + 1

@@ -137,7 +137,9 @@ def test_port_imports_nothing_of_jax():
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods] + scripts
     # the walk reaches every slice's modules: the serving paths', the
-    # latent slice's, the training path's and the DDPM samplers'
+    # latent slice's, the training path's, the DDPM samplers' and the
+    # shapes gate's and NLL path's (data, models.unet, models.probe,
+    # samplers, convert, eval, gate, entry, ops.kernels, ops.attention)
     assert {PKG.name + "." + m for m in (
         "models.dit", "models.unet", "models.mlp", "models.probe",
         "models.embeddings", "ops.kernels", "ops.attention", "ops.pca",
