@@ -23,6 +23,8 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     100); the bfloat16 kernels' fast GELU and sigmoid where they saturate
     (|x| around 10 and 80); ``fused_dit_block`` also at the shapes gate's
     DiT cells, (64, 64, 256) bf16, one 64-token image a block;
+    ``blend_eps`` also at the blends of phases 19 and 20, beside the device
+    time of an empty kernel launch (the floor under its bound);
  4. the DiT path: 3 composed ``dit_p14_d256_l4`` experts (random weights
     from a seed), 50-step DDIM, batch 2048, bf16, through
     ``entry.sample``: finite output, exactly 600 ``fused_dit_block``
@@ -69,10 +71,11 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     against the committed 48k-step PASS, printed as those of an
     under-trained run (a PASS is not a condition);
 11. SUPERDIFF (``entry.sample_superdiff``): two ``GUIDED_UNET`` experts (the
-    ``colored_mnist_guided`` preset's model), 28 x 28 x 3, batch 64,
-    float32, per-expert labels; OR and the rigorous AND at the preset's
-    1000 DDPM timesteps, the AND heuristic, FIXED (0.7, 0.3), AVG and the
-    rigorous OR at 100 (a cut for time);
+    ``colored_mnist_guided`` preset's model, random weights), 28 x 28 x 3,
+    batch 64, float32, per-expert labels; OR, the rigorous AND, the AND
+    heuristic, FIXED (0.7, 0.3), AVG and the rigorous OR at 100 of the
+    preset's 1000 DDPM timesteps (OR and the rigorous AND run all 1000 on
+    the trained experts of phase 18);
 12. layout (``entry.sample_layout``): the same two experts, a circular
     mask, batch 64, 100 timesteps (a cut for time);
 13. the bbox composition (``entry.sample_ancestral``): three
@@ -116,7 +119,33 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     and held to the sequential ``prob_flow_ode``; a warm call of it and of
     a classifier-guided ``ddim`` (the gate's probe steering the color)
     under ``set_sync_debug_mode("error")``;
-18. one ``kernels`` JSON line, then the result line.
+18. the ``colored_mnist_guided`` experts trained and served: two
+    ``GUIDED_UNET`` experts at the preset's full width (batch 128, float32,
+    ``DDPMSchedule(1000)``, label dropout 0.1) trained through
+    ``entry.train_image`` on disjoint digit subsets for a few hundred steps
+    (the preset's 4000 cut for time): train ms/step and images/s, each loss
+    curve (its last 50 steps must average below half its first 10), no
+    kernel launched; the trees saved and read back by name bit for bit;
+    then SUPERDIFF OR and the rigorous AND over them at the preset's 1000
+    timesteps, batch 64, per-expert labels, through
+    ``entry.sample_superdiff``, each as a path of 11-15 (exactly 16000
+    ``groupnorm_silu`` + 4000 ``groupnorm_silu_split`` launches, the plain
+    path on replayed noise, kappa at the last step, the ``|x| >= 1`` share
+    of trained outputs);
+19. a preset through train, sample and compose: two ``mnist_image``
+    experts trained the same way; ``entry.sample_image`` (ddim, 50 steps,
+    batch 64: 400 + 100 K4 launches) and ``entry.compose_scores`` (em over
+    both, 50 steps: 800 + 200 K4 and exactly 50 ``blend_eps`` launches;
+    none of K3 with ``fused_blend=False``), each as a path of 11-15; the
+    sample grid's PNG read back pixel for pixel; warm calls under
+    ``set_sync_debug_mode("error")``;
+20. the beta-VAE latent path: ``entry.train_vae`` on procedural MNIST at
+    full size (28 x 28 x 1, latent 10, base 32), both trainings cut to a
+    few hundred steps, the losses at start and end; then
+    ``entry.compose_latent_vae`` over digits (3, 5), bs 16, 300 timesteps:
+    ``weighted`` with exactly 300 ``blend_eps`` launches, ``cfg`` with none,
+    each against its plain path, decoded images/s;
+21. one ``kernels`` JSON line, then the result line.
 
 Exits with code 2 and prints no result where there is no CUDA card.
 """
@@ -126,6 +155,8 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -194,11 +225,15 @@ FA_ROUTE_LONG_Q = (4, 8, 1024, 64)
 LATENT_N, LATENT_SIZE, LATENT_BATCH, LATENT_STEPS = 10000, 64, 512, 1000
 EM_N, EM_SIZE, EM_BATCH = 8192, 28, 64
 # blend_eps: (K, B, ...) stacks. The latent path's, the DiT path's and the
-# shapes path's blends (all float32 there), then ragged ones, K = 1 and 5
+# shapes path's blends (all float32 there), compose_scores' (two mnist_image
+# experts, batch 64) and compose_latent_vae's (two digits, 16 latents of
+# 10), then ragged ones, K = 1 and 5
 BLEND_MAIN = (2, LATENT_BATCH, 2)
-BLEND_SHAPES = [BLEND_MAIN, (3, BATCH, 28, 28, 1), (2, A_BATCH, 64, 64, 3),
-                (3, 7, 5), (2, 1, 1), (1, 9, 33), (5, 1000, 3), (5, 64, 8)]
-BLEND_TIMED = BLEND_SHAPES[:3]
+BLEND_CONFIG = [(2, 64, 28, 28, 1), (2, 16, 10)]
+BLEND_SHAPES = [BLEND_MAIN, (3, BATCH, 28, 28, 1), (2, A_BATCH, 64, 64, 3)] \
+    + BLEND_CONFIG + [(3, 7, 5), (2, 1, 1), (1, 9, 33), (5, 1000, 3),
+                      (5, 64, 8)]
+BLEND_TIMED = BLEND_SHAPES[:5]
 # matmul: (M, K, N). The codec's encode and decode at both presets, a wider
 # codec (64 components of 64 x 64 x 3 images) and its decode, the shapes of
 # the JAX package's own kernel test, odd ones, and one square
@@ -250,6 +285,21 @@ SG_K1 = (SG_SAMPLES, 64, 256, 8)  # (B, T, D, heads) of the DiT cells' K1
 NLL_N, NLL_STEPS = 64, 50
 PPF_BATCH, PPF_STEPS = 8, 16
 CG_BATCH, CG_STEPS, CG_SCALE = 64, 20, 2.0
+# the config-driven paths (phases 18-20), written under SMOKE_OUT (git
+# ignored, removed at the end). Phase 18: two colored_mnist_guided experts
+# trained on disjoint digit subsets, the preset's 4000 steps cut to
+# TRAIN_CFG_STEPS for time, then SUPERDIFF OR and the rigorous AND at its
+# 1000 timesteps, batch SD_BATCH. Phase 19: two mnist_image experts cut the
+# same way, sample_image (ddim) and compose_scores (em) at the preset's 50
+# steps and batch 64. Phase 20: the beta-VAE and its latent expert, the
+# script's 2000 + 2000 steps cut to VAE_STEPS each, composed at bs 16 over
+# 300 timesteps
+SMOKE_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "outputs", "chip_smoke")
+TRAIN_CFG_STEPS, VAE_STEPS = 300, 300
+GUIDED_SUBSETS = ((0, 1, 2, 3, 4), (5, 6, 7, 8, 9))
+MNIST_SUBSETS = ((0, 1, 2), (5, 6, 7))
+PRESET_BATCH, PRESET_STEPS = 64, 50
 # groupnorm_silu at those paths' shapes (float32): the guided UNet's three
 # levels at batch 64, two and three experts' rows at once, the bbox
 # experts' levels at batch 4 and the timed batch 64 (batch 128 at 64 x 64
@@ -750,7 +800,20 @@ def check_latent_kernels(kernels, compose):
                 # no single PyTorch call computes the normalised blend
                 rows[("blend_eps", dtype)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=None)
+                    bound_by=by, library_ms=None, config_path_shapes=[])
+            elif shape in BLEND_CONFIG and dtype == torch.float32:
+                rows[("blend_eps", dtype)]["config_path_shapes"].append(dict(
+                    shape=list(shape), max_abs_err=err, ms=ms, dev_ms=dev,
+                    plain_ms=plain, bound_ms=bms, bound_by=by,
+                    library_ms=None))
+        if dtype == torch.float32:
+            # the floor under any launch: an empty kernel (torch's spin
+            # kernel asked for no cycles), its device time from a trace
+            empty = device_ms(lambda: torch.cuda._sleep(0), match="spin")
+            log(f"an empty kernel launch (torch.cuda._sleep(0)): {empty:.4f} "
+                f"ms on the device in a trace, the floor under blend_eps's "
+                f"bound of {rows[('blend_eps', dtype)]['bound_ms']:.7f} ms")
+            rows[("blend_eps", dtype)]["empty_launch_dev_ms"] = empty
         for m, k, n in MM_SHAPES:
             a = torch.randn(m, k, generator=gen).to("cuda", dtype)
             b = torch.randn(k, n, generator=gen).to("cuda", dtype)
@@ -1399,13 +1462,17 @@ def last_output(module, name: str):
 
 def k4_path(card, label: str, run, forwards: int, batch: int, steps: int,
             shape: tuple, kernels, attention, unet, compose=None,
-            kappa_fn: str = None, bf16: bool = False) -> dict:
+            kappa_fn: str = None, bf16: bool = False, also: dict = None,
+            plain=contextlib.nullcontext) -> dict:
     """One UNet path of phases 11-15: ``run(**kw)`` samples at full depth
     with replayed draws (``fused_gn=``; ``n=`` for a shorter run with
     seeded draws). The kernel run (counts from 0, timed), exact launches,
     fused_gn=False (none), the plain path on the same draws: x and, where
     ``kappa_fn`` names the function that returns it, kappa at the last
-    step. bf16 is held on the mean (0.05). float32 is held per element
+    step. ``also``: the exact launches of other kernels a call makes
+    (``fused_gn=False`` leaves them be); ``plain()``: a context that puts
+    those kernels' plain versions in place for the plain path.
+    bf16 is held on the mean (0.05). float32 is held per element
     (1e-3 of the scale, and kappa to 1e-3) unless the path itself is
     sensitive: the plain path against itself with x * a + b rounded twice
     (one more rounding per GroupNorm element), run beside it, moving by
@@ -1431,16 +1498,16 @@ def k4_path(card, label: str, run, forwards: int, batch: int, steps: int,
         fail(f"{label}: output has the wrong shape")
     want = dict.fromkeys(counts, 0)
     want.update(groupnorm_silu=8 * forwards,
-                groupnorm_silu_split=2 * forwards)
+                groupnorm_silu_split=2 * forwards, **(also or {}))
     if counts != want:
         fail(f"{label}: launches {counts}, expected {want}")
     cut = min(steps, UNFUSED_STEPS)
     reset_launches(kernels, attention)
     _, sec_u = timed(lambda: run(n=cut, fused_gn=False))
     unfused = read_launches(kernels, attention)
-    if any(unfused.values()):
+    if any(v for k, v in unfused.items() if k not in (also or {})):
         fail(f"{label}: fused_gn=False launched a kernel: {unfused}")
-    with plain_groupnorm(unet, kernels), kappa_of() as box_p:
+    with plain_groupnorm(unet, kernels), plain(), kappa_of() as box_p:
         ref, sec_p = timed(run)
     scale = max(1.0, float(ref.abs().max()))
     diff = (out - ref).abs()
@@ -1457,7 +1524,7 @@ def k4_path(card, label: str, run, forwards: int, batch: int, steps: int,
                                gn_rounded_twice(kernels)), \
                 mock.patch.object(unet, "groupnorm_silu_split",
                                   kernels.groupnorm_silu_split_ref), \
-                kappa_of() as box_b:
+                plain(), kappa_of() as box_b:
             ref_b = run()
         d_b = (ref - ref_b).abs()
         sensitive = float(d_b.max()) > 1e-4 * scale
@@ -1506,9 +1573,12 @@ def ddpm_paths(card, convert, entry, unet, kernels, attention,
     x = torch.randn(img, generator=gen, device="cuda")
     # per-expert (digit, color); expert 0's color slot is the null token
     labels = torch.tensor([[3, 10], [7, 2]], device="cuda")
-    noise1, noise2 = draws(img, SD_T), draws(img, SD_T, (2,))
-    cases = [("OR", False, SD_T, "or_softmax"),
-             ("AND", True, SD_T, "and_solve_k"),
+    # OR and the rigorous AND run at the preset's 1000 timesteps on the
+    # trained experts of phase 18; on these random-weight experts, whose
+    # outputs all clip there, at SD_CUT like the rest
+    noise1, noise2 = draws(img, SD_CUT), draws(img, SD_CUT, (2,))
+    cases = [("OR", False, SD_CUT, "or_softmax"),
+             ("AND", True, SD_CUT, "and_solve_k"),
              ("AND", False, SD_CUT, "and_heuristic"),
              ("FIXED", False, SD_CUT, None), ("AVG", False, SD_CUT, None),
              ("OR", True, SD_CUT, "or_softmax")]
@@ -1990,6 +2060,236 @@ def nll_and_samplers(card, entry, samplers, kernels, attention, tree,
     sync_free("classifier-guided ddim", lambda: ddim(guided))
 
 
+def read_png(path: str):
+    """(width, height, pixels) of an 8-bit RGB PNG with filter-0 rows, the
+    form ``utils.viz.save_grid`` writes, decoded with zlib."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path} lacks the PNG signature")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        chunks[kind] = chunks.get(kind, b"") + data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h = struct.unpack(">II", chunks[b"IHDR"][:8])
+    raw = torch.frombuffer(bytearray(zlib.decompress(chunks[b"IDAT"])),
+                           dtype=torch.uint8).reshape(h, 1 + 3 * w)
+    return w, h, raw[:, 1:].reshape(h, w, 3).numpy()
+
+
+def train_named(card, entry, kernels, attention, preset: str, names,
+                subsets, overrides, conditional: bool, batch: int) -> list:
+    """``entry.train_image`` for each (name, digit subset): time, train
+    images/s, the loss curve (held: last 50 below half the first 10), no
+    kernel launched. Returns the trained trees."""
+    trees = []
+    for name, classes in zip(names, subsets):
+        reset_launches(kernels, attention)
+        (tree, losses, _), sec = timed(lambda: entry.train_image(
+            preset, name, classes=classes, conditional=conditional,
+            out=SMOKE_OUT, overrides=overrides))
+        counts = read_launches(kernels, attention)
+        steps = losses.shape[0]
+        log(f"  {preset} expert {name} (digits {classes}), {steps} steps at "
+            f"batch {batch}: {sec:.1f} s = {sec / steps * 1e3:.2f} ms/step = "
+            f"{batch * steps / sec:.0f} train images/s (data, init and "
+            f"first-call set-up included) ({card}); launches {counts}")
+        if any(counts.values()):
+            fail(f"training {name} launched a kernel: {counts}")
+        loss_curve(f"{preset} {name}", losses)
+        trees.append(tree)
+    return trees
+
+
+def same_bits(trees, loaded, label: str) -> None:
+    from composable_diffusion_models_tpu_torch import train
+    for a, b in zip(trees, loaded):
+        pa, la = train.flatten(a)
+        pb, lb = train.flatten(b)
+        if pa != pb or not all(torch.equal(x, y) for x, y in zip(la, lb)):
+            fail(f"{label}: the trees read back are not the trees saved")
+    log(f"  {label}: {len(trees)} trees saved through CheckpointManager and "
+        f"read back by name (entry.load_named): bit for bit")
+
+
+def trained_superdiff(card, entry, unet, kernels, attention,
+                      compose) -> dict:
+    """Phase 18. Returns the launches of each SUPERDIFF call."""
+    log(f"colored_mnist_guided: two GUIDED_UNET experts (base 64, (1, 2, 4), "
+        f"digit and color slots with the null token) through "
+        f"entry.train_image, batch 128, float32, DDPMSchedule(1000), label "
+        f"dropout 0.1 to (10, 10); the preset's 4000 steps cut to "
+        f"{TRAIN_CFG_STEPS} for time")
+    names = ("guided_a", "guided_b")
+    trees = train_named(card, entry, kernels, attention,
+                        "colored_mnist_guided", names, GUIDED_SUBSETS,
+                        [f"--train.steps={TRAIN_CFG_STEPS}"], True, 128)
+    loaded = entry.load_named("colored_mnist_guided", names, SMOKE_OUT)
+    same_bits(trees, loaded, "colored_mnist_guided experts")
+    del trees
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    img = (SD_BATCH, 28, 28, 3)
+    x = torch.randn(img, generator=gen, device="cuda")
+    # per-expert (digit, color): a digit of each expert's subset in its
+    # own colour (the preset's per-digit colours)
+    labels = torch.tensor([[3, 3], [7, 7]], device="cuda")
+    noise = {False: torch.randn((SD_T,) + img, generator=gen, device="cuda"),
+             True: torch.randn((SD_T, 2) + img, generator=gen,
+                               device="cuda")}
+    launches = {}
+    for op, rigorous, kappa_fn in (("OR", False, "or_softmax"),
+                                   ("AND", True, "and_solve_k")):
+        def run(n=SD_T, op=op, rigorous=rigorous, **kw):
+            return entry.sample_superdiff(
+                loaded, x, labels, operation=op, rigorous_and=rigorous,
+                num_timesteps=n, noise=noise[rigorous] if n == SD_T else None,
+                **kw)
+        name = f"SUPERDIFF {'rigorous ' if rigorous else ''}{op}"
+        launches[f"trained_superdiff_{'solve_' if rigorous else ''}"
+                 f"{op.lower()}"] = k4_path(
+            card, f"{name} on the TRAINED guided experts (batch {SD_BATCH}, "
+            f"{SD_T} timesteps, float32, labels (3, 3) and (7, 7))", run,
+            2 * SD_T, SD_BATCH, SD_T, img, kernels, attention, unet,
+            compose, kappa_fn)
+        sync_free(f"{name} on the trained experts", lambda run=run: run(n=2))
+    return launches
+
+
+@contextlib.contextmanager
+def loaded_once(entry, trees: dict):
+    """The entry points read ``trees`` (by name) instead of their
+    checkpoints and write no grid: what is left is the sampler."""
+    from composable_diffusion_models_tpu_torch.utils import viz
+    with mock.patch.object(entry, "load_named",
+                           lambda preset, names, *a, **k: [trees[n]
+                                                           for n in names]), \
+            mock.patch.object(viz, "save_grid", lambda *a, **k: None):
+        yield
+
+
+def preset_paths(card, entry, unet, kernels, attention) -> dict:
+    """Phase 19. Returns the launches of the sample_image and
+    compose_scores calls."""
+    log(f"mnist_image: two UNet experts (base 64, (1, 2, 4), 28 x 28 x 1) "
+        f"through entry.train_image, batch 128, float32, VPSchedule; the "
+        f"preset's 4000 steps cut to {TRAIN_CFG_STEPS} for time")
+    names = ("expert_a", "expert_b")
+    trees = train_named(card, entry, kernels, attention, "mnist_image",
+                        names, MNIST_SUBSETS,
+                        [f"--train.steps={TRAIN_CFG_STEPS}"], False, 128)
+    loaded = entry.load_named("mnist_image", names, SMOKE_OUT)
+    same_bits(trees, loaded, "mnist_image experts")
+    del trees
+    launches = {}
+    shape = (PRESET_BATCH, 28, 28, 1)
+
+    def run_s(n=PRESET_STEPS, **kw):
+        return entry.sample_image("mnist_image", "expert_a", sampler="ddim",
+                                  out=SMOKE_OUT,
+                                  overrides=[f"--sample.n_steps={n}"], **kw)
+    launches["sample_image"] = k4_path(
+        card, f"sample_image, ddim (expert_a, batch {PRESET_BATCH}, "
+        f"{PRESET_STEPS} steps, float32)", run_s, PRESET_STEPS, PRESET_BATCH,
+        PRESET_STEPS, shape, kernels, attention, unet)
+    out = run_s()
+    path = f"{SMOKE_OUT}/mnist_image/run_0/results/expert_a_samples.png"
+    from composable_diffusion_models_tpu_torch.utils import viz
+    w, h, pixels = read_png(path)
+    grid = viz._to_numpy_grid(out.cpu().numpy(), 8)
+    if (h, w) != grid.shape[:2] or not (pixels == grid).all():
+        fail("the PNG does not hold the sample grid")
+    log(f"  {path.split('/')[-1]}: PNG signature, IHDR {w} x {h}, every "
+        f"pixel equal to viz._to_numpy_grid of the samples")
+
+    def run_c(n=PRESET_STEPS, **kw):
+        return entry.compose_scores("mnist_image", names, sampler="em",
+                                    out=SMOKE_OUT,
+                                    overrides=[f"--sample.n_steps={n}"], **kw)
+
+    def plain_blend():
+        return mock.patch.object(entry, "blend_eps", kernels.blend_eps_ref)
+    launches["compose_scores"] = k4_path(
+        card, f"compose_scores, em (expert_a + expert_b, unit weights, batch "
+        f"{PRESET_BATCH}, {PRESET_STEPS} steps, float32)", run_c,
+        2 * PRESET_STEPS, PRESET_BATCH, PRESET_STEPS, shape, kernels,
+        attention, unet, also={"blend_eps": PRESET_STEPS}, plain=plain_blend)
+    out = run_c()
+    reset_launches(kernels, attention)
+    out_w, sec = timed(lambda: run_c(fused_blend=False))
+    counts = read_launches(kernels, attention)
+    want = dict.fromkeys(counts, 0)
+    want.update(groupnorm_silu=8 * 2 * PRESET_STEPS,
+                groupnorm_silu_split=2 * 2 * PRESET_STEPS)
+    log(f"  compose_scores with fused_blend=False (compose.weighted): "
+        f"{PRESET_BATCH / sec:.1f} images/s; launches {counts}; against "
+        f"blend_eps: max |diff| {max_err(out, out_w):.3e}")
+    if counts != want:
+        fail(f"compose_scores(fused_blend=False) launched {counts}")
+    with loaded_once(entry, dict(zip(names, loaded))):
+        sync_free("sample_image, ddim (checkpoint loaded, no grid)",
+                  lambda: run_s(n=2))
+        sync_free("compose_scores, em (checkpoints loaded, no grid)",
+                  lambda: run_c(n=2))
+    return launches
+
+
+def vae_paths(card, entry, kernels, attention) -> dict:
+    """Phase 20. Returns the launches of compose_latent_vae(weighted)."""
+    reset_launches(kernels, attention)
+    res, sec = timed(lambda: entry.train_vae(
+        vae_steps=VAE_STEPS, diff_steps=VAE_STEPS, out=SMOKE_OUT))
+    counts = read_launches(kernels, attention)
+    vl, dl = res["vae_losses"].cpu(), res["diff_losses"].cpu()
+    log(f"train_vae (mnist_image: 8192 procedural digits of 28 x 28 x 1, "
+        f"BetaVAE latent 10 base 32, Adam 1e-3 at batch 128; then the "
+        f"latent expert under DDPMSchedule(300) at batch 256; the script's "
+        f"2000 + 2000 steps cut to {VAE_STEPS} + {VAE_STEPS}): {sec:.1f} s "
+        f"({card}); VAE loss (BCE + KL a sample) first 10 steps "
+        f"{float(vl[:10].mean()):.2f}, last 50 {float(vl[-50:].mean()):.2f}; "
+        f"latent expert first 10 {float(dl[:10].mean()):.4f}, last 50 "
+        f"{float(dl[-50:].mean()):.4f}; launches {counts}")
+    if any(counts.values()):
+        fail(f"train_vae launched a kernel: {counts}")
+    if not (bool(torch.isfinite(vl).all()) and bool(torch.isfinite(dl).all())
+            and float(vl[-50:].mean()) < float(vl[:10].mean())):
+        fail("train_vae's losses are not finite or did not fall")
+    launches = {}
+    for mode in ("weighted", "cfg"):
+        def run(mode=mode, **kw):
+            return entry.compose_latent_vae(mode=mode, out=SMOKE_OUT, **kw)
+        run()
+        reset_launches(kernels, attention)
+        imgs, sec = timed(run)
+        counts = read_launches(kernels, attention)
+        want = dict.fromkeys(counts, 0)
+        want["blend_eps"] = 300 if mode == "weighted" else 0
+        with mock.patch.object(entry, "blend_eps", kernels.blend_eps_ref):
+            ref, sec_p = timed(run)
+        imgs_w = run(fused_blend=False)
+        log(f"compose_latent_vae, {mode} (digits (3, 5), bs 16, 300 "
+            f"timesteps, float32; the checkpoint read each call): "
+            f"{16 / sec:.1f} decoded images/s ({card}), plain path "
+            f"{16 / sec_p:.1f}; launches {counts}; kernel path vs plain path "
+            f"max |diff| {max_err(imgs, ref):.3e} (bar 1e-3), vs "
+            f"fused_blend=False (compose.weighted) {max_err(imgs, imgs_w):.3e}"
+            f"; images in [{float(imgs.min()):.3f}, {float(imgs.max()):.3f}]")
+        if counts != want:
+            fail(f"compose_latent_vae({mode}) launched {counts}, expected "
+                 f"{want}")
+        if not bool(torch.isfinite(imgs).all()) or \
+                tuple(imgs.shape) != (16, 28, 28, 1):
+            fail(f"compose_latent_vae({mode}): bad output")
+        if not max_err(imgs, ref) <= 1e-3:
+            fail(f"compose_latent_vae({mode}): the kernel path disagrees "
+                 f"with the plain path")
+        launches[f"compose_latent_vae_{mode}"] = counts
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2136,7 +2436,26 @@ def main() -> int:
                      gate_run["trees"]["unet64"][0], gate_run["probe"])
     by_path["shapes_gate"] = gate_run["launches"]["unet64"]
 
-    # 18. the kernels line, then the result line. launches: each kernel's
+    # 18-20. the config-driven paths: presets through train_image,
+    # sample_image, compose_scores and SUPERDIFF; the beta-VAE
+    shutil.rmtree(SMOKE_OUT, ignore_errors=True)
+    took = {}
+    t0 = time.perf_counter()
+    by_path.update(trained_superdiff(card, entry, unet, kernels, attention,
+                                     compose))
+    took[18] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    preset_launches = preset_paths(card, entry, unet, kernels, attention)
+    by_path.update(preset_launches)
+    took[19] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vae_launches = vae_paths(card, entry, kernels, attention)
+    took[20] = time.perf_counter() - t0
+    shutil.rmtree(SMOKE_OUT, ignore_errors=True)
+    log("phases 18-20 took " + ", ".join(f"{k}: {v:.1f} s"
+                                         for k, v in took.items()))
+
+    # 21. the kernels line, then the result line. launches: each kernel's
     # count on the path that serves it (fused_dit_block: the DiT path;
     # short_seq_attention: fused_block=False; groupnorm_silu and its two-part
     # form groupnorm_silu_split (the same source; the JAX function it
@@ -2145,7 +2464,9 @@ def main() -> int:
     # path's shape and dtype. The two GroupNorm rows also carry their
     # launches on every UNet path (phases 7, 8, 11-16) and their numbers at
     # the DDPM paths' shapes; fused_dit_block's row its launches on the DiT
-    # path and on the shapes gate's DiT cells, and its numbers there
+    # path and on the shapes gate's DiT cells, and its numbers there;
+    # blend_eps's row its launches on the paths of phases 9, 19 and 20, its
+    # numbers at the shapes of 19 and 20 and an empty launch's device time
     src = "composable_diffusion_models_tpu_torch/csrc/"
     tpu = "composable_diffusion_models_tpu/ops/"
     line = {"kernels": [
@@ -2173,6 +2494,15 @@ def main() -> int:
                 "shapes_gate": gate_run["launches"]["dit_p8_d256_l8"][
                     "fused_dit_block"]}
             row["shapes_gate_shape"] = k1_gate
+        if row["name"] == "blend_eps":
+            row["launches_by_path"] = {
+                "latent_ddim": launches["blend_eps"],
+                "compose_scores": preset_launches["compose_scores"][
+                    "blend_eps"],
+                "compose_latent_vae_weighted": vae_launches[
+                    "compose_latent_vae_weighted"]["blend_eps"],
+                "compose_latent_vae_cfg": vae_launches[
+                    "compose_latent_vae_cfg"]["blend_eps"]}
         if row["name"] in ("groupnorm_silu", "groupnorm_silu_split"):
             row["launches_by_path"] = {p: c[row["name"]]
                                        for p, c in by_path.items()}

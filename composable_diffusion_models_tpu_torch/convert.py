@@ -22,8 +22,9 @@ from .models.dit import DiT
 from .models.mlp import LatentDiffusionMLP, ScoreMLP
 from .models.probe import ProbeClassifier
 from .models.unet import UNet
+from .models.vae import BetaVAE
 from .ops.pca import PCA
-from .rng import Draws
+from .rng import as_draws
 
 Shapes = Dict[Tuple[str, ...], Tuple[Tuple[int, ...], int]]
 
@@ -65,9 +66,12 @@ def unet_torch_layout(tree: Any) -> Any:
 def param_shapes(cfg) -> Shapes:
     """{key path: (shape, fan_in)} of the flax module's ``init`` tree under
     "params", for a :class:`DiT`, :class:`UNet`, :class:`ScoreMLP`,
-    :class:`LatentDiffusionMLP` or :class:`ProbeClassifier` configuration."""
+    :class:`LatentDiffusionMLP`, :class:`ProbeClassifier` or
+    :class:`BetaVAE` configuration."""
     if isinstance(cfg, UNet):
         return _unet_shapes(cfg)
+    if isinstance(cfg, BetaVAE):
+        return _vae_shapes(cfg)
     if isinstance(cfg, (ScoreMLP, LatentDiffusionMLP)):
         return _mlp_shapes(cfg)
     if isinstance(cfg, ProbeClassifier):
@@ -88,6 +92,32 @@ def _probe_shapes(cfg: ProbeClassifier) -> Shapes:
     for i, n in enumerate(cfg.num_classes):
         out[(f"head_{i}", "kernel")] = ((128, n), 128)
         out[(f"head_{i}", "bias")] = ((n,), 0)
+    return out
+
+
+def _vae_shapes(cfg: BetaVAE) -> Shapes:
+    """``enc_convs_i`` (stride 2), ``fc_mu`` / ``fc_logvar`` over the
+    flattened s x s x C features, ``dec_dense`` back to them,
+    ``dec_convs_i`` over the reversed widths, ``dec_out``."""
+    out: Shapes = {}
+
+    def layer(name, shape, fan_in):
+        out[(name, "kernel")] = (shape, fan_in)
+        out[(name, "bias")] = ((shape[-1],), 0)
+
+    cin = cfg.in_channels
+    for i, m in enumerate(cfg.channel_mults):
+        layer(f"enc_convs_{i}", (3, 3, cin, cfg.base_dim * m), 9 * cin)
+        cin = cfg.base_dim * m
+    feat = cfg.feat_size ** 2 * cfg.feat_channels
+    layer("fc_mu", (feat, cfg.latent_dim), feat)
+    layer("fc_logvar", (feat, cfg.latent_dim), feat)
+    layer("dec_dense", (cfg.latent_dim, feat), cfg.latent_dim)
+    cin = cfg.feat_channels
+    for i, m in enumerate(reversed(cfg.channel_mults)):
+        layer(f"dec_convs_{i}", (3, 3, cin, cfg.base_dim * m), 9 * cin)
+        cin = cfg.base_dim * m
+    layer("dec_out", (3, 3, cin, cfg.in_channels), 9 * cin)
     return out
 
 
@@ -216,8 +246,7 @@ def _dit_shapes(cfg: DiT) -> Shapes:
 
 def init_params(cfg, seed: int) -> Dict[str, Any]:
     """Random float32 numpy tree with the key paths and shapes of the flax
-    module's ``init`` (``DiT``, ``UNet``, ``ScoreMLP`` or
-    ``LatentDiffusionMLP``).
+    module's ``init`` (any configuration :func:`param_shapes` takes).
 
     Kernels are N(0, 1/fan_in); biases and the positional embedding
     N(0, 0.02^2); label embeddings N(0, 1); norm scales 1 + N(0, 0.1^2).
@@ -244,22 +273,25 @@ def init_params(cfg, seed: int) -> Dict[str, Any]:
 _ZERO_KERNELS = {"Dense_0", "final_mod", "unpatchify"}
 
 
-def flax_init(cfg, key: int, device="cpu") -> Dict[str, Any]:
+def flax_init(cfg, key, device="cpu") -> Dict[str, Any]:
     """A float32 tree distributed as the flax module's ``init`` makes it, for
-    a :class:`DiT`, a :class:`UNet` or a :class:`ProbeClassifier`, drawn
-    through ``rng.Draws(key, device)`` one leaf at a time in sorted
-    key-path order: kernels lecun-normal (N(0, 1/fan_in) truncated at two
-    of its standard deviations, rescaled as flax's ``variance_scaling``
-    does), biases zero, norm scales one (no draw for either), label
-    embeddings N(0, 1/width), the DiT's positions N(0, 0.02^2) and its
-    adaLN modulation and unpatchify kernels zero. The bits are not flax's:
-    the two frameworks draw differently. UNet convolution kernels come out
-    HWIO, as flax stores them (``unet_torch_layout`` turns them for
-    ``UNet.apply``)."""
-    if not isinstance(cfg, (DiT, UNet, ProbeClassifier)):
-        raise TypeError(f"flax_init covers DiT, UNet and ProbeClassifier, got "
-                        f"{type(cfg).__name__}")
-    draws = Draws(key, device)
+    any configuration :func:`param_shapes` takes, drawn through
+    ``rng.Draws(key, device)`` (``key`` an int, or a ``rng.Draws`` itself)
+    one leaf at a time in sorted key-path order: kernels lecun-normal
+    (N(0, 1/fan_in) truncated at two of its standard deviations, rescaled
+    as flax's ``variance_scaling`` does), biases zero, norm scales one (no
+    draw for either), label embeddings N(0, 1/width), the DiT's positions
+    N(0, 0.02^2) and its adaLN modulation and unpatchify kernels zero. The
+    bits are not flax's: the two frameworks draw differently. UNet
+    convolution kernels come out HWIO, as flax stores them
+    (``unet_torch_layout`` turns them for ``UNet.apply``). The tree lies on
+    the draws' device."""
+    if not isinstance(cfg, (DiT, UNet, ProbeClassifier, ScoreMLP,
+                            LatentDiffusionMLP, BetaVAE)):
+        raise TypeError(f"flax_init covers DiT, UNet, ProbeClassifier, the "
+                        f"MLPs and BetaVAE, got {type(cfg).__name__}")
+    draws = as_draws(key, device)
+    device = draws.device
     params: Dict[str, Any] = {}
     for path, (shape, fan_in) in sorted(param_shapes(cfg).items()):
         zero = path[-1] == "bias" or (

@@ -75,6 +75,24 @@ the NLL evaluator of ``scripts/eval_nll.py``:
 * :func:`eval_nll`: per-example log-likelihood and bits/dim of a trained
   expert by the probability-flow ODE (``samplers.log_likelihood``), its
   jvps through the PyTorch-op GroupNorm.
+
+The config-driven paths, each reading a preset of ``utils.config`` with
+dotted overrides and building through ``builders`` as the JAX package's
+scripts do, checkpoints by name under ``CheckpointManager(out, cfg.name)``:
+
+* :func:`train_image`: one image expert of any preset
+  (``scripts/train_image.py``), e.g. the ``colored_mnist_guided`` experts
+  that :func:`sample_superdiff` serves once :func:`load_named` has read
+  them back (``scripts/superdiff.py``).
+* :func:`sample_image`: one trained expert under E-M, the probability-flow
+  ODE, Picard sweeps, DPM-Solver++(2M) or DDIM
+  (``scripts/sample_image.py``); the UNet's GroupNorm through K4.
+* :func:`compose_scores`: K trained experts blended by weights, the blend
+  through the ``blend_eps`` kernel (``scripts/compose_scores.py``).
+* :func:`train_vae` and :func:`compose_latent_vae`: the beta-VAE codec and
+  its digit-conditional latent expert, composed in the 10-D latent by CFG
+  or by a ``blend_eps`` blend under ancestral DDPM and decoded
+  (``scripts/train_vae.py``, ``scripts/compose_latent_vae.py``).
 """
 
 from __future__ import annotations
@@ -90,15 +108,20 @@ import torch
 
 from . import compose, data, gate, resolve_device, samplers, train
 from . import eval as ceval
+from .builders import build_dataset, build_model, build_schedule, init_params
+from .checkpoint import CheckpointManager
 from .compose import weighted
 from .convert import flax_init, param_shapes, unet_torch_layout
 from .experts import ExpertStack, gray_to_rgb, per_expert, rgb_to_gray
 from .models.dit import DiT, make_folded_apply
-from .models.mlp import ScoreMLP
+from .models.mlp import LatentDiffusionMLP, ScoreMLP
 from .models.unet import UNet
+from .models.vae import BetaVAE, vae_loss
 from .ops import pca as pca_codec
 from .ops.kernels import blend_eps
-from .rng import Draws, fold_in
+from .rng import Draws, as_draws, fold_in
+from .utils import viz
+from .utils.config import get_config, save_yaml
 from .samplers import ddim, make_cfg_eps_fn
 from .schedules import DDPMSchedule, VPSchedule
 
@@ -1044,3 +1067,426 @@ def eval_nll(params: Any, model: Any = SHAPES_UNET, dataset: str = "shapes",
             "bits_per_dim_mean": float(bpd.mean()),
             "bits_per_dim_sem": float(bpd.std(correction=0)
                                       / math.sqrt(bpd.shape[0]))}
+
+
+# ---------------------------------------------------- config-driven paths
+def _subkey(key, i: int):
+    """fold_in(key, i) of an int key, or of a ``rng.Draws`` (a
+    ``rng.Replay`` hands out its recording in order)."""
+    return key.fold_in(i) if isinstance(key, Draws) else fold_in(key, i)
+
+
+def _float_tree(tree: Any, model, dev: torch.device) -> Any:
+    """A parameter tree in float32 on ``dev``; a UNet's in the layout
+    ``UNet.apply`` reads."""
+    tree = _cast(tree, dev, torch.float32)
+    return unet_torch_layout(tree) if isinstance(model, UNet) else tree
+
+
+def load_named(preset: str, names: Sequence[str], out: str = "outputs",
+               overrides: Sequence[str] = (), device=None) -> list:
+    """The ``params`` trees that :func:`train_image` saved under ``names``
+    for ``preset`` (its ``CheckpointManager(out, cfg.name)``), in float32
+    on the device (``None``: the CUDA card); UNet trees in the layout
+    ``UNet.apply`` reads. ``scripts/superdiff.py`` and the sampling
+    scripts load their experts so."""
+    dev = resolve_device(device)
+    cfg = get_config(preset, overrides)
+    model = build_model(cfg)
+    mgr = CheckpointManager(out, cfg.name)
+    return [_float_tree(mgr.load(n, device=dev)["params"], model, dev)
+            for n in names]
+
+
+def train_image(preset: str = "mnist_image", name: str = "expert",
+                classes: Optional[Sequence[int]] = None,
+                conditional: bool = False,
+                label_slots: Optional[Sequence[int]] = None,
+                sanity: bool = False, resumable: bool = False,
+                out: str = "outputs", overrides: Sequence[str] = (),
+                plot_loss: bool = False, device=None, key=None,
+                init: Any = None) -> Tuple[Any, torch.Tensor, str]:
+    """Trains one image expert of a preset: the path of
+    ``scripts/train_image.py``. Returns (params, losses, checkpoint path):
+    the trained tree (the EMA tree where the preset sets ``ema_decay``) in
+    the layout its model's ``apply`` reads, on the device, and the (steps,)
+    losses there.
+
+    ``overrides``: dotted ``--key=value`` strings (``utils.config``);
+    ``classes`` restricts the dataset; ``sanity`` cuts the sizes
+    (``Config.apply_sanity``). The data are drawn with ``fold_in(key, 1)``,
+    the initial tree with ``fold_in(key, 2)`` (``convert.flax_init``;
+    ``init``: a tree in its place, e.g. a converted flax tree), the
+    training with ``fold_in(key, 3)``; ``key`` defaults to the config's
+    seed (an ``rng.Draws`` or ``rng.Replay`` in its place replays draws).
+    ``conditional`` trains on the dataset's first label slots (as many as
+    the model has), or on ``label_slots`` (indices into the dataset's
+    labels); label dropout ``train.uncond_prob`` replaces both slots of a
+    sample by the null labels (the class counts) together. The model trains
+    without kernels (none has a backward). ``resumable`` checkpoints every
+    chunk of 100 steps and resumes from the newest
+    (``train.train_expert_resumable``).
+
+    Writes, under ``CheckpointManager(out, cfg.name)``: the checkpoint
+    ``{name}_final`` ({"params", "step"}), the config as
+    ``logs/{name}_config.yaml``, the losses as ``results/{name}_loss.npy``
+    (and ``{name}_loss.png`` with ``plot_loss``, which needs matplotlib)
+    and, for an unconditional VP preset, the one-step denoise grid
+    ``results/{name}_onestep.png``. ``device=None`` is the CUDA card."""
+    dev = resolve_device(device)
+    cfg = get_config(preset, overrides)
+    if classes:
+        cfg.data.classes = tuple(classes)
+    cfg.train.sanity = cfg.train.sanity or sanity
+    cfg.apply_sanity()
+    key = cfg.train.seed if key is None else key
+    schedule = build_schedule(cfg)
+    model = build_model(cfg)
+    images, labels = build_dataset(cfg, _subkey(key, 1), dev)
+    if not conditional:
+        train_labels = ()
+    elif label_slots:
+        train_labels = tuple(labels[s] for s in label_slots)
+    else:
+        train_labels = labels[:len(cfg.model.num_classes)]
+    params = (init_params(model, _subkey(key, 2), dev) if init is None
+              else _float_tree(init, model, dev))
+    mgr = CheckpointManager(out, cfg.name)
+    t = cfg.train
+    train_kw = dict(
+        steps=t.steps, batch_size=t.batch_size, lr=t.lr, predict=t.predict,
+        snr_gamma=t.snr_gamma or None, uncond_prob=t.uncond_prob,
+        null_labels=tuple(cfg.model.num_classes) if t.uncond_prob else None,
+        steps_per_scan=min(100, t.steps), ema_decay=t.ema_decay or None)
+    if resumable:
+        params, losses = train.train_expert_resumable(
+            _subkey(key, 3), model.apply, params, schedule, images, mgr,
+            name, train_labels, **train_kw)
+    else:
+        params, losses = train.train_expert(
+            _subkey(key, 3), model.apply, params, schedule, images,
+            train_labels, **train_kw)
+    path = mgr.save(name, {"params": params, "step": t.steps})
+    save_yaml(cfg, os.path.join(mgr.logs_dir, f"{name}_config.yaml"))
+    if losses.shape[0]:  # empty when a resumable run was already complete
+        np.save(os.path.join(mgr.results_dir, f"{name}_loss.npy"),
+                losses.cpu().numpy())
+        if plot_loss:
+            viz.plot_loss(losses,
+                          os.path.join(mgr.results_dir, f"{name}_loss.png"))
+    if cfg.schedule.family == "vp" and not cfg.model.num_classes:
+        size, ch = cfg.data.img_size, cfg.model.in_channels
+        with torch.no_grad():
+            grid = train.one_step_denoise_val(
+                model.apply, params, schedule, key, (16, size, size, ch),
+                device=dev)
+        viz.save_grid(grid, os.path.join(mgr.results_dir,
+                                         f"{name}_onestep.png"), nrow=4)
+    return params, losses, path
+
+
+@torch.inference_mode()
+def sample_image(preset: str = "mnist_image", name: str = "expert",
+                 sampler: Optional[str] = None, eta: float = 0.0,
+                 corrector_steps: int = 0, corrector_snr: float = 0.16,
+                 seed: int = 42, out: str = "outputs",
+                 overrides: Sequence[str] = (), fused_gn: bool = True,
+                 x_init=None,
+                 noise: Optional[torch.Tensor] = None, key=None,
+                 device=None) -> torch.Tensor:
+    """Samples one trained expert of a preset (the checkpoint
+    :func:`train_image` saved as ``name``): the path of
+    ``scripts/sample_image.py``. Returns the float32 (B, H, W, C) samples
+    at the config's ``sample.batch_size`` and ``sample.n_steps``, and
+    writes their grid to ``results/{name}_samples.png``.
+
+    ``sampler`` (None: the config's ``sample.sampler``): "em"
+    (Euler-Maruyama, churn ``sample.xi``), "ode" (probability flow),
+    "picard" (``parallel_prob_flow``, 15 sweeps), "dpmpp"
+    (DPM-Solver++(2M)); "ddim" and any other name run DDIM with ``eta``,
+    the Langevin corrector (``corrector_steps``, ``corrector_snr``) and
+    the config's ``train.predict``. A model that predicts x0 or v samples
+    through DDIM only (ValueError otherwise). An unconditional sampler
+    cannot drive a conditional model: its ``apply`` raises, as the JAX
+    UNet's assertion does.
+
+    Draws: the initial noise from ``rng.Draws(seed)`` (``x_init`` in its
+    place), E-M's noise from a generator seeded with ``seed`` (``noise``:
+    (n_steps, B, H, W, C) in its place), DDIM's eta and corrector draws
+    from ``fold_in(seed, 1)`` (``key`` in its place). ``fused_gn=True``
+    routes a UNet's GroupNorm + SiLU through the ``groupnorm_silu`` kernel
+    (its cross-attention, where it has one, always goes through
+    ``flash_attention``). ``device=None`` is the CUDA card."""
+    dev = resolve_device(device)
+    cfg = get_config(preset, overrides)
+    if sampler:
+        cfg.sample.sampler = sampler
+    sampler = cfg.sample.sampler
+    if cfg.train.predict != "eps" and sampler not in (None, "", "ddim"):
+        raise ValueError(f"predict={cfg.train.predict!r} models sample "
+                         "through ddim only (em, ode, picard and dpmpp "
+                         "take eps closures)")
+    schedule = build_schedule(cfg)
+    model = build_model(cfg, fused_gn=fused_gn, flash_attn=True)
+    params, = load_named(preset, [name], out, overrides, dev)
+    size, ch = cfg.data.img_size, cfg.model.in_channels
+    shape = (cfg.sample.batch_size, size, size, ch)
+    x = (Draws(seed, dev).normal(shape) if x_init is None
+         else torch.as_tensor(x_init, dtype=torch.float32).to(dev))
+    n = cfg.sample.n_steps
+
+    def eps_fn(x_: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return model.apply(params, x_, t)
+
+    if sampler == "em":
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        out_x = samplers.euler_maruyama(
+            eps_fn, schedule, gen, x, n, cfg.sample.xi,
+            noise=None if noise is None else noise.to(dev))
+    elif sampler == "ode":
+        out_x = samplers.prob_flow_ode(
+            lambda x_, t: -eps_fn(x_, t) / schedule.sigma(t), schedule, x, n)
+    elif sampler == "picard":
+        # the n_steps grid points folded into the batch axis, 15 sweeps
+        def score_fn(x_, t):
+            return -eps_fn(x_, t) / schedule.sigma(t).reshape(
+                (-1,) + (1,) * (x_.dim() - 1))
+        out_x, _ = samplers.parallel_prob_flow(score_fn, schedule, x, n,
+                                               n_iters=15)
+    elif sampler == "dpmpp":
+        out_x = samplers.dpm_solver_pp_2m(eps_fn, schedule, x, n)
+    else:
+        stochastic = bool(eta or corrector_steps)
+        out_x = ddim(eps_fn, schedule, x, n, eta=eta,
+                     key=((fold_in(seed, 1) if key is None else key)
+                          if stochastic else None),
+                     predict=cfg.train.predict,
+                     corrector_steps=corrector_steps,
+                     corrector_snr=corrector_snr)
+    mgr = CheckpointManager(out, cfg.name)
+    viz.save_grid(out_x, os.path.join(mgr.results_dir, f"{name}_samples.png"))
+    return out_x
+
+
+@torch.inference_mode()
+def compose_scores(preset: str = "mnist_image",
+                   experts: Sequence[str] = ("expert_a", "expert_b"),
+                   weights: Optional[Sequence[float]] = None,
+                   sampler: str = "em", corrector_steps: int = 0,
+                   corrector_snr: float = 0.16, seed: int = 42,
+                   out: str = "outputs", overrides: Sequence[str] = (),
+                   fused_blend: bool = True, fused_gn: bool = True,
+                   x_init=None, noise: Optional[torch.Tensor] = None,
+                   key=None, device=None) -> torch.Tensor:
+    """Composes K trained experts of a preset (the checkpoints
+    :func:`train_image` saved under ``experts``) by a weighted eps blend:
+    the path of ``scripts/compose_scores.py``. Returns the float32 (B, H,
+    W, C) samples and writes their grid to
+    ``results/composed_{names}.png``.
+
+    ``weights``: (K,) blend weights, ones by default. ``fused_blend=True``
+    blends through the ``blend_eps`` kernel, ``False`` through
+    ``compose.weighted``; ``fused_gn`` as in :func:`sample_image`.
+    ``sampler``: "em" (Euler-Maruyama, churn ``sample.xi``), "ddim" (with
+    the Langevin corrector: ``corrector_steps``, ``corrector_snr``) or
+    "dpmpp". Draws as in :func:`sample_image` (``x_init``, ``noise``,
+    ``key``). ``device=None`` is the CUDA card."""
+    if sampler not in ("em", "ddim", "dpmpp"):
+        raise ValueError(f"sampler must be 'em', 'ddim' or 'dpmpp', got "
+                         f"{sampler!r}")
+    dev = resolve_device(device)
+    cfg = get_config(preset, overrides)
+    schedule = build_schedule(cfg)
+    model = build_model(cfg, fused_gn=fused_gn, flash_attn=True)
+    names = list(experts)
+    stack = ExpertStack(model.apply,
+                        load_named(preset, names, out, overrides, dev))
+    w = compose.constant([1.0] * len(names) if weights is None else weights,
+                         torch.float32, dev)
+    blend = blend_eps if fused_blend else weighted
+
+    def eps_fn(x_: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return blend(stack(x_, t), w)
+
+    size, ch = cfg.data.img_size, cfg.model.in_channels
+    shape = (cfg.sample.batch_size, size, size, ch)
+    x = (Draws(seed, dev).normal(shape) if x_init is None
+         else torch.as_tensor(x_init, dtype=torch.float32).to(dev))
+    n = cfg.sample.n_steps
+    if sampler == "dpmpp":
+        out_x = samplers.dpm_solver_pp_2m(eps_fn, schedule, x, n)
+    elif sampler == "ddim":
+        out_x = ddim(eps_fn, schedule, x, n,
+                     key=((fold_in(seed, 1) if key is None else key)
+                          if corrector_steps else None),
+                     corrector_steps=corrector_steps,
+                     corrector_snr=corrector_snr)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        out_x = samplers.euler_maruyama(
+            eps_fn, schedule, gen, x, n, cfg.sample.xi,
+            noise=None if noise is None else noise.to(dev))
+    mgr = CheckpointManager(out, cfg.name)
+    viz.save_grid(out_x, os.path.join(mgr.results_dir,
+                                      f"composed_{'_'.join(names)}.png"))
+    return out_x
+
+
+# the latent expert of the VAE path: z, the time embedding and one digit
+# slot with the null token (10)
+VAE_LATENT_T = 300
+
+
+def vae_latent_mlp(latent_dim: int = 10) -> LatentDiffusionMLP:
+    return LatentDiffusionMLP(latent_dim=latent_dim, hidden=256, depth=3,
+                              num_classes=(10,), null_token=True)
+
+
+def train_vae(preset: str = "mnist_image", latent_dim: int = 10,
+              beta: float = 1.0, vae_steps: int = 2000,
+              diff_steps: int = 2000, name: str = "vae",
+              sanity: bool = False, out: str = "outputs",
+              overrides: Sequence[str] = (), device=None, key=None,
+              init: Optional[dict] = None) -> dict:
+    """Trains the beta-VAE codec and a digit-conditional latent diffusion
+    expert on its mean encodings: the path of ``scripts/train_vae.py``.
+
+    1. The preset's dataset (``rng.Draws(key)``), mapped to [0, 1].
+    2. ``BetaVAE(img_size, in_channels, latent_dim)`` initialised from
+       ``key`` (``init["vae"]``: a tree in its place), ``vae_steps`` steps
+       of Adam at 1e-3 on the BCE + ``beta`` KL loss (``vae_loss``), each
+       on 128 images drawn with replacement: step i's key ``fold_in(key,
+       i)`` split in two, for the indices and the reparameterisation noise.
+    3. The mean encodings mu of every image, cached.
+    4. ``vae_latent_mlp(latent_dim)`` initialised from ``key``
+       (``init["mlp"]``) and trained ``diff_steps`` on (mu, digit) under
+       ``DDPMSchedule(300)`` (``train.train_expert``: batch 256, lr 1e-3,
+       label dropout 0.1 to the null label 10, t first), key ``fold_in(key,
+       1)``.
+
+    ``sanity`` cuts both trainings to 30 steps and the data to 256 images;
+    ``key`` defaults to the config's seed (a ``rng.Replay`` replays the
+    draws). Saves {"vae", "mlp", "latent_dim"} as ``{name}_final`` under
+    ``CheckpointManager(out, f"{cfg.name}_vae")``. Returns {"vae", "mlp":
+    the trees, "vae_losses", "diff_losses": (steps,) on the device,
+    "path"}. No kernel runs in training. ``device=None`` is the CUDA
+    card."""
+    dev = resolve_device(device)
+    cfg = get_config(preset, overrides)
+    if sanity:
+        vae_steps, diff_steps = 30, 30
+        cfg.data.n = 256
+    key = cfg.train.seed if key is None else key
+    images, (labels, *_) = build_dataset(cfg, key, dev)
+    images01 = (images + 1.0) / 2.0  # BCE wants [0, 1]
+    vae = BetaVAE(img_size=cfg.data.img_size,
+                  in_channels=cfg.model.in_channels, latent_dim=latent_dim)
+    vparams = (flax_init(vae, key, dev) if init is None
+               else _cast(init["vae"], dev, torch.float32))
+    tx = train.Adam(1e-3)
+    opt_state = tx.init(vparams)
+    n = images01.shape[0]
+
+    def loss_fn(p, batch, noise):
+        recon, mu, logvar = vae.apply(p, batch, noise=noise)
+        return vae_loss(recon, batch, mu, logvar, beta)
+
+    draws = as_draws(key, dev)
+    vae_losses = []
+    for i in range(vae_steps):
+        kb, kr = draws.fold_in(i).split(2)
+        batch = images01[kb.randint((128,), n)]
+        loss, grads = train.value_and_grad(
+            loss_fn, vparams, batch, kr.normal((128, latent_dim)))
+        vparams, opt_state = tx.update(grads, opt_state, vparams)
+        vae_losses.append(loss)
+    with torch.no_grad():
+        mu, _ = vae.encode(vparams, images01)
+    mlp = vae_latent_mlp(latent_dim)
+    mparams = (flax_init(mlp, key, dev) if init is None
+               else _cast(init["mlp"], dev, torch.float32))
+    mparams, diff_losses = train.train_expert(
+        _subkey(key, 1), mlp.apply, mparams,
+        DDPMSchedule(num_timesteps=VAE_LATENT_T), mu, (labels,),
+        steps=diff_steps, batch_size=256, lr=1e-3, uncond_prob=0.1,
+        null_labels=(10,), time_first=True,
+        steps_per_scan=min(100, diff_steps))
+    mgr = CheckpointManager(out, f"{cfg.name}_vae")
+    path = mgr.save(name, {"vae": vparams, "mlp": mparams,
+                           "latent_dim": latent_dim})
+    return {"vae": vparams, "mlp": mparams,
+            "vae_losses": torch.stack(vae_losses)
+            if vae_losses else torch.zeros((0,), device=dev),
+            "diff_losses": diff_losses, "path": path}
+
+
+VAE_MODES = ("cfg", "weighted")
+
+
+@torch.inference_mode()
+def compose_latent_vae(preset: str = "mnist_image", name: str = "vae",
+                       digits: Sequence[int] = (3, 5), mode: str = "cfg",
+                       guidance: float = 2.0, bs: int = 16,
+                       latent_dim: int = 10, seed: int = 42,
+                       out: str = "outputs", overrides: Sequence[str] = (),
+                       fused_blend: bool = True, z_init=None,
+                       noise: Optional[torch.Tensor] = None,
+                       device=None) -> torch.Tensor:
+    """Composes the VAE's latent expert over ``digits`` and decodes: the
+    path of ``scripts/compose_latent_vae.py`` on the checkpoint
+    :func:`train_vae` saved as ``name``. Returns the float32 (bs, H, W, C)
+    decoded images in (0, 1) and writes their grid (4 a row) to
+    ``results/vae_composed_{mode}.png``.
+
+    ``mode``: "cfg", classifier-free guidance of the one expert over the
+    digit conditions against the null label 10, each weighted
+    ``guidance`` (``samplers.make_cfg_eps_fn``: one forward of (K + 1) bs
+    rows a step); "weighted", the K conditional forwards blended with unit
+    weights, through the ``blend_eps`` kernel (``fused_blend=True``) or
+    ``compose.weighted``. Then ancestral DDPM over ``DDPMSchedule(300)``
+    without the clip, the integer timestep given to the expert as a
+    float, and ``BetaVAE.decode``. The initial latents come from
+    ``rng.Draws(seed)`` (``z_init`` in their place), the sampler's noise
+    from a generator seeded with ``seed`` (``noise``: (300, bs,
+    latent_dim)). ``device=None`` is the CUDA card."""
+    if mode not in VAE_MODES:
+        raise ValueError(f"mode must be one of {VAE_MODES}, got {mode!r}")
+    dev = resolve_device(device)
+    cfg = get_config(preset, overrides)
+    vae = BetaVAE(img_size=cfg.data.img_size,
+                  in_channels=cfg.model.in_channels, latent_dim=latent_dim)
+    mlp = vae_latent_mlp(latent_dim)
+    mgr = CheckpointManager(out, f"{cfg.name}_vae")
+    state = mgr.load(name, device=dev)
+    vparams, mparams = (_cast(state[k], dev, torch.float32)
+                        for k in ("vae", "mlp"))
+    sde = DDPMSchedule(num_timesteps=VAE_LATENT_T)
+    t_col = torch.arange(VAE_LATENT_T, dtype=torch.float32, device=dev)
+    k = len(digits)
+    if mode == "cfg":
+        cfg_fn = make_cfg_eps_fn(
+            lambda z, t, lab: mlp.apply(mparams, t, z, lab),
+            [(d,) for d in digits], (10,),
+            compose.constant([guidance] * k, torch.float32, dev))
+
+        def eps_fn(z: torch.Tensor, ti: int) -> torch.Tensor:
+            return cfg_fn(z, t_col[ti])
+    else:
+        labels = [torch.full((bs,), d, dtype=torch.long, device=dev)
+                  for d in digits]
+        w = compose.constant([1.0] * k, torch.float32, dev)
+        blend = blend_eps if fused_blend else weighted
+
+        def eps_fn(z: torch.Tensor, ti: int) -> torch.Tensor:
+            return blend(torch.stack([mlp.apply(mparams, t_col[ti], z, lab)
+                                      for lab in labels]), w)
+    z = (Draws(seed, dev).normal((bs, latent_dim)) if z_init is None
+         else torch.as_tensor(z_init, dtype=torch.float32).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = samplers.ddpm_ancestral(eps_fn, sde, gen, z, clip=None,
+                                noise=None if noise is None
+                                else noise.to(dev))
+    imgs = vae.decode(vparams, z)
+    viz.save_grid(imgs, os.path.join(mgr.results_dir,
+                                     f"vae_composed_{mode}.png"), nrow=4)
+    return imgs

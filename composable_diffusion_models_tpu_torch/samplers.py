@@ -294,7 +294,8 @@ def _euler_maruyama(eps_fn, schedule, generator, x_init, n_steps, xi, t_max,
                     t_min, noise, keep: bool):
     """The E-M loop; returns (x_final, [x_init, x_1, ...] or None)."""
     table = schedule.ode_table(n_steps, t_max, t_min)  # t, dloga, g2, sigma, dt
-    ts = table[:, 0].to(x_init.device)
+    ts = compose.constant(table[:, 0].tolist(), torch.float32,
+                          x_init.device)
     g2, dt = table[:, 2], table[:, 4]
     rows = zip(table[:, 1].tolist(),
                (torch.tensor(0.5 * (1.0 + xi)) * g2).tolist(),
@@ -352,7 +353,8 @@ def prob_flow_ode(score_fn: EpsFn, schedule: VPSchedule, x_init: torch.Tensor,
     ``score_fn`` returns the TRUE score (not sigma-scaled): an eps model
     enters as score = -eps_hat / sigma."""
     table = schedule.ode_table(n_steps, t_max, t_min)
-    ts = table[:, 0].to(x_init.device)
+    ts = compose.constant(table[:, 0].tolist(), torch.float32,
+                          x_init.device)
     rows = zip(table[:, 1].tolist(), (0.5 * table[:, 2]).tolist(),
                table[:, 4].tolist())
     x = x_init

@@ -629,3 +629,97 @@ def test_wrappers_refuse_autodiff_on_the_card():
     with torch.no_grad():
         kernels.groupnorm_silu(x, s, b, 8)
     assert kernels.groupnorm_silu.launches == n0 + 1
+
+
+# ------------------------------------ the config-driven paths (K3, K4)
+@pytest.mark.parametrize("shape", [(2, 64, 28, 28, 1), (2, 16, 10)])
+def test_blend_eps_at_the_config_paths_shapes(shape):
+    """K3 at ``compose_scores``' blend (two ``mnist_image`` experts, batch
+    64) and ``compose_latent_vae``'s (two digits, 16 latents of 10),
+    float32: 1e-6 of the scale from its plain version."""
+    g = torch.Generator().manual_seed(len(shape))
+    eps = torch.randn(*shape, generator=g).cuda()
+    w = torch.ones(shape[0], device="cuda")
+    got = kernels.blend_eps(eps, w)
+    ref = kernels.blend_eps_ref(eps, w)
+    assert float((got - ref).abs().max()) <= _tol(torch.float32, ref, 1e-6)
+
+
+def _launches():
+    return (kernels.groupnorm_silu.launches,
+            kernels.groupnorm_silu_split.launches, kernels.blend_eps.launches)
+
+
+def _saved_experts(tmp_path, preset, overrides, names):
+    from composable_diffusion_models_tpu_torch import builders
+    from composable_diffusion_models_tpu_torch.checkpoint import \
+        CheckpointManager
+    from composable_diffusion_models_tpu_torch.utils.config import get_config
+    cfg = get_config(preset, overrides)
+    mgr = CheckpointManager(str(tmp_path), cfg.name)
+    for i, name in enumerate(names):
+        mgr.save(name, {"params": convert.from_flax(convert.init_params(
+            builders.build_model(cfg), seed=i)), "step": 0})
+
+
+def test_config_paths_launch_their_kernels(tmp_path):
+    """``sample_image`` (ddim, 3 steps): 8 + 2 K4 launches a forward;
+    ``compose_scores`` (em, 3 steps, 2 experts): the same per expert and
+    one K3 a step, none with ``fused_blend=False``; ``train_image`` runs
+    no kernel."""
+    ov = ["--model.base_dim=8", "--sample.n_steps=3",
+          "--sample.batch_size=4"]
+    _saved_experts(tmp_path, "mnist_image", ov, ["expert_a", "expert_b"])
+    n0 = _launches()
+    out = entry.sample_image("mnist_image", "expert_a", sampler="ddim",
+                             out=str(tmp_path), overrides=ov)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(n0, _launches())) == (24, 6, 0)
+    assert out.is_cuda and out.shape == (4, 28, 28, 1)
+    for fused, blends in ((True, 3), (False, 0)):
+        n0 = _launches()
+        out = entry.compose_scores("mnist_image", ["expert_a", "expert_b"],
+                                   out=str(tmp_path), overrides=ov,
+                                   fused_blend=fused)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(n0, _launches())) == (48, 12,
+                                                                 blends)
+        assert bool(torch.isfinite(out).all())
+    n0 = _launches()
+    _, losses, _ = entry.train_image(
+        "colored_mnist_guided", "g", conditional=True, sanity=True,
+        out=str(tmp_path), overrides=["--model.base_dim=8",
+                                      "--train.steps=3"])
+    assert _launches() == n0 and losses.is_cuda and losses.shape == (3,)
+
+
+def test_compose_latent_vae_launches_blend_eps(tmp_path):
+    """``weighted``: one K3 launch a step, 300 a call; ``cfg`` and
+    ``fused_blend=False`` none; the images decoded on the card."""
+    from composable_diffusion_models_tpu_torch.checkpoint import \
+        CheckpointManager
+    from composable_diffusion_models_tpu_torch.models import BetaVAE
+    CheckpointManager(str(tmp_path), "mnist_image_vae").save("vae", {
+        "vae": convert.from_flax(convert.init_params(BetaVAE(), seed=1)),
+        "mlp": convert.from_flax(convert.init_params(
+            entry.vae_latent_mlp(10), seed=2)), "latent_dim": 10})
+    for mode, fused, want in (("weighted", True, 300), ("weighted", False, 0),
+                              ("cfg", True, 0)):
+        n0 = kernels.blend_eps.launches
+        imgs = entry.compose_latent_vae(mode=mode, out=str(tmp_path),
+                                        fused_blend=fused)
+        torch.cuda.synchronize()
+        assert kernels.blend_eps.launches - n0 == want
+        assert imgs.is_cuda and imgs.shape == (16, 28, 28, 1)
+
+
+def test_config_paths_need_the_card_by_default(monkeypatch):
+    """``device=None`` means the card: with none visible, every new entry
+    point raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: entry.train_image(sanity=True),
+                 entry.sample_image, entry.compose_scores,
+                 lambda: entry.train_vae(sanity=True),
+                 entry.compose_latent_vae):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
