@@ -145,7 +145,35 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     ``entry.compose_latent_vae`` over digits (3, 5), bs 16, 300 timesteps:
     ``weighted`` with exactly 300 ``blend_eps`` launches, ``cfg`` with none,
     each against its plain path, decoded images/s;
-21. one ``kernels`` JSON line, then the result line.
+21. the trained latent and 2-D experts: ``entry.fit_pca`` on the
+    ``shapes_latent`` preset (10000 shapes of 64 x 64 x 1), two
+    ``ScoreMLP(256, 3, 2)`` experts through ``entry.train_latent_2d`` on
+    shape subsets (exactly one ``matmul`` launch each, the encode; the loss
+    curve), served by ``entry.sample_latent`` (``ddim`` and ``em``, 512
+    latents, 1000 steps: exactly 1000 ``blend_eps`` and one ``matmul``
+    launch each, the plain path, a warm call without host syncs); then
+    ``entry.superposition_2d`` (two ``ScoreMLP(512, 4, 2)`` experts, the
+    Ito-kappa sampler over 512 points; no kernel);
+22. ``eval_composition.eval_composition`` on shapes with holdout (2, 2): a
+    gray (unit-norm luma) and an RGB ``unet64`` expert and the probe
+    trained once, then one call per operator (``avg``, ``cfg``, ``proj``,
+    ``ito``; 32 samples a combination): exactly 8 + 2 K4 launches per
+    expert forward (none under ``ito``) and one ``blend_eps`` a step under
+    ``avg``; the reported joint accuracies; the held-out combination of
+    ``avg``, ``cfg`` and ``proj`` as a path of 11-15 (the plain path, a
+    warm call without host syncs), ``ito`` and the probe-guided ``cg``
+    (whose gradient launches nothing) counted;
+23. ``eval_superdiff.eval_superdiff``'s mixture protocol (two
+    unconditional colored-MNIST ``unet64`` experts, a digit probe; OR, the
+    AND heuristic and the rigorous AND at T 1000, 256 samples: exactly 8 +
+    2 K4 launches per forward; the per-class histogram and half balance
+    reported), its OR job on the trained experts (read from the
+    protocol's cache) at batch 256 before the clip as a path of 11-15
+    (phase 3 holds K4 at its shapes);
+    ``entry.compose_images_ito`` on phase 22's experts (no kernel; the
+    grid's PNG read back); ``utils.summarize.summarize_evals`` over the
+    reports;
+24. one ``kernels`` JSON line, then the result line.
 
 Exits with code 2 and prints no result where there is no CUDA card.
 """
@@ -300,19 +328,52 @@ TRAIN_CFG_STEPS, VAE_STEPS = 300, 300
 GUIDED_SUBSETS = ((0, 1, 2, 3, 4), (5, 6, 7, 8, 9))
 MNIST_SUBSETS = ((0, 1, 2), (5, 6, 7))
 PRESET_BATCH, PRESET_STEPS = 64, 50
+# the batch of eval_superdiff's mixture protocol (phase 23): its 256
+# samples a job
+EV_BATCH = 256
 # groupnorm_silu at those paths' shapes (float32): the guided UNet's three
 # levels at batch 64, two and three experts' rows at once, the bbox
 # experts' levels at batch 4 and the timed batch 64 (batch 128 at 64 x 64
-# is GN_MAIN); the two-part form at their up blocks
+# is GN_MAIN), the mixture experts' levels at EV_BATCH; the two-part form at
+# their up blocks
 GN_DDPM_SHAPES = [(SD_BATCH, 28, 28, 64), (SD_BATCH, 14, 14, 128),
                   (SD_BATCH, 7, 7, 256), (2 * SD_BATCH, 28, 28, 64),
                   (3 * SD_BATCH, 28, 28, 64), (BBOX_BATCH, 64, 64, 64),
                   (BBOX_BATCH, 32, 32, 128), (BBOX_BATCH, 16, 16, 256),
-                  (BBOX_BATCH_TIMED, 64, 64, 64)]
+                  (BBOX_BATCH_TIMED, 64, 64, 64), (EV_BATCH, 28, 28, 64),
+                  (EV_BATCH, 14, 14, 128), (EV_BATCH, 7, 7, 256)]
 GN_DDPM_SPLIT = [((SD_BATCH, 14, 14), (256, 128)),
                  ((SD_BATCH, 28, 28), (128, 64)),
                  ((BBOX_BATCH, 32, 32), (256, 128)),
-                 ((BBOX_BATCH, 64, 64), (128, 64))]
+                 ((BBOX_BATCH, 64, 64), (128, 64)),
+                 ((EV_BATCH, 14, 14), (256, 128)),
+                 ((EV_BATCH, 28, 28), (128, 64))]
+
+# the trained latent and 2-D experts and the composition scores (phases
+# 21-23), each at its script's published widths, with training and sampling
+# steps cut for time and nothing else (the script's value printed beside
+# each). Phase 21: two shapes_latent ScoreMLP(256, 3, 2) experts on shape
+# subsets (holdouts of every pair of shape 2, of shape 0), the preset's
+# 4000 steps cut to LT_STEPS, served by sample_latent at its 1000 steps;
+# superposition_2d's two ScoreMLP(512, 4, 2) experts, its 20000 steps cut
+# to SP_STEPS, its 1000 sampling steps. Phase 22: eval_composition on
+# shapes, holdout (2, 2), 32 samples a combination, a gray (luma_norm) and
+# an RGB unet64 expert: the preset's 4000 training steps cut to EC_TRAIN,
+# the probe's 1200 to EC_PROBE, its 200 steps to EC_STEPS (EC_ITO_STEPS
+# under ito, whose jvps cost 7x a step). Phase 23:
+# eval_superdiff's mixture protocol at T 1000 (its 12000 training and 2000
+# probe steps cut to EV_TRAIN and EV_PROBE; the kernel path held to the
+# plain path on the OR job at EV_BATCH, before the clip), compose_images_ito
+# on phase 22's experts (its 1000 steps cut to CI_STEPS) and
+# summarize_evals
+LT_STEPS, SP_STEPS = 1000, 1000
+LT_HOLDOUTS = {"latent_a": "((2,0),(2,1),(2,2))",
+               "latent_b": "((0,0),(0,1),(0,2))"}
+EC_TRAIN, EC_PROBE, EC_STEPS, EC_ITO_STEPS, EC_SAMPLES = 300, 300, 50, 20, 32
+EC_OPS = ("avg", "cfg", "proj", "ito")
+EC_CG_STEPS = 10
+EV_TRAIN, EV_PROBE = 300, 300
+CI_STEPS = 20
 
 
 def log(msg: str) -> None:
@@ -2290,6 +2351,320 @@ def vae_paths(card, entry, kernels, attention) -> dict:
     return launches
 
 
+def latent_trained(card, entry, kernels, attention, samplers) -> dict:
+    """Phase 21. Returns the launches of each train_latent_2d call and of
+    sample_latent's ddim and em calls on the trained experts."""
+    reset_launches(kernels, attention)
+    codec, sec = timed(lambda: entry.fit_pca("shapes_latent", out=SMOKE_OUT))
+    counts = read_launches(kernels, attention)
+    log(f"fit_pca (shapes_latent: 10000 shapes of 64 x 64 x 1 made on the "
+        f"card, 2 components): {sec:.2f} s ({card}); explained variance "
+        f"{[round(v, 3) for v in codec.explained_variance.tolist()]}; "
+        f"launches {counts}")
+    if any(counts.values()):
+        fail(f"fit_pca launched a kernel: {counts}")
+    launches = {}
+    for name, hold in LT_HOLDOUTS.items():
+        reset_launches(kernels, attention)
+        (_, losses, _), sec = timed(lambda: entry.train_latent_2d(
+            "shapes_latent", name=name, out=SMOKE_OUT,
+            overrides=[f"--train.steps={LT_STEPS}",
+                       f"--data.holdout={hold}"]))
+        counts = read_launches(kernels, attention)
+        want = dict.fromkeys(counts, 0)
+        want["matmul"] = 1
+        log(f"train_latent_2d {name} (holdout {hold}; ScoreMLP(256, 3, 2), "
+            f"batch 512, lr 1e-3; the preset's 4000 steps cut to {LT_STEPS})"
+            f": {sec:.2f} s = {sec / LT_STEPS * 1e3:.2f} ms/step ({card}); "
+            f"launches {counts} (the encode)")
+        if counts != want:
+            fail(f"train_latent_2d {name} launched {counts}, expected {want}")
+        loss_curve(f"shapes_latent {name}", losses)
+        launches[f"train_latent_2d_{name}"] = counts
+    trees = entry.load_named("shapes_latent", tuple(LT_HOLDOUTS), SMOKE_OUT)
+    pca = entry.load_pca(os.path.join(SMOKE_OUT, "pca"))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    z0 = torch.randn(LATENT_BATCH, 2, generator=gen, device="cuda")
+    noise = torch.randn((LATENT_STEPS, LATENT_BATCH, 2), generator=gen,
+                        device="cuda")
+    for op in ("ddim", "em"):
+        def run(n=LATENT_STEPS, op=op, **kw):
+            return entry.sample_latent(
+                trees, pca, z0, op=op, n_steps=n,
+                noise=noise if op == "em" and n == LATENT_STEPS else None,
+                **kw)
+        run(n=2)
+        reset_launches(kernels, attention)
+        (z, imgs), sec = timed(run)
+        counts = read_launches(kernels, attention)
+        want = dict.fromkeys(counts, 0)
+        want.update(blend_eps=LATENT_STEPS, matmul=1)
+        with mock.patch.object(kernels, "matmul", kernels.matmul_ref):
+            z_p, img_p = run(fused_blend=False)
+        scale = max(1.0, float(z_p.abs().max()))
+        err_z, err_i = max_err(z, z_p), max_err(imgs, img_p)
+        log(f"sample_latent {op} on the TRAINED experts ({LATENT_BATCH} "
+            f"latents, the preset's {LATENT_STEPS} steps, decode to 64 x 64):"
+            f" {sec:.3f} s = {LATENT_BATCH / sec:.1f} latents/s ({card}); "
+            f"launches {counts}; kernel path vs plain path: latents max "
+            f"|diff| {err_z:.3e} at scale {scale:.2f}, images {err_i:.3e} "
+            f"(tol 1e-3 of the scale); |z| max {float(z.abs().max()):.2f}")
+        if counts != want:
+            fail(f"sample_latent {op} launched {counts}, expected {want}")
+        if not (bool(torch.isfinite(z).all()) and tuple(imgs.shape) ==
+                (LATENT_BATCH, LATENT_SIZE, LATENT_SIZE, 1)):
+            fail(f"sample_latent {op} on the trained experts: bad output")
+        if not (err_z <= 1e-3 * scale and err_i <= 1e-3 * scale):
+            fail(f"sample_latent {op}: the kernel path disagrees with the "
+                 f"plain path")
+        launches[f"latent_trained_{op}"] = counts
+        sync_free(f"sample_latent {op} on the trained experts",
+                  lambda run=run: run(n=2)[0])
+    reset_launches(kernels, attention)
+    res, sec = timed(lambda: entry.superposition_2d(
+        steps=SP_STEPS, out=os.path.join(SMOKE_OUT, "superposition_2d")))
+    counts = read_launches(kernels, attention)
+    x, ll = res["samples"], res["ll"]
+    log(f"superposition_2d (two ScoreMLP(512, 4, 2) on the toy2d halves, "
+        f"batch 512, VPSchedule(jax_faithful); the script's 20000 steps cut "
+        f"to {SP_STEPS}, its 1000 sampling steps over 512 points): "
+        f"{sec:.1f} s ({card}); launches {counts}; samples mean "
+        f"{[round(v, 3) for v in x.mean(0).tolist()]}, |ll1 - ll2| mean "
+        f"{float((ll[0] - ll[1]).abs().mean()):.3f}")
+    if any(counts.values()):
+        fail(f"superposition_2d launched a kernel: {counts}")
+    if not (bool(torch.isfinite(x).all()) and bool(torch.isfinite(ll).all())
+            and tuple(x.shape) == (512, 2) and tuple(ll.shape) == (2, 512)):
+        fail("superposition_2d: bad output")
+    for label, losses in zip(("up", "down"), res["losses"]):
+        loss_curve(f"superposition_2d {label} expert", losses)
+    from composable_diffusion_models_tpu_torch.models.mlp import ScoreMLP
+    from composable_diffusion_models_tpu_torch.schedules import VPSchedule
+    m = ScoreMLP(hidden=512, depth=4, out_dim=2)
+    fns = tuple((lambda x_, t, p=p: m.apply(p, t.expand(x_.shape[0]), x_))
+                for p in res["experts"])
+
+    def sp_run():
+        with torch.no_grad():
+            return samplers.superposition_2d(
+                fns, VPSchedule(kind="jax_faithful"),
+                torch.Generator(device="cuda").manual_seed(0), x, 2)[0]
+    sync_free("superposition_2d sampler", sp_run)
+    return launches
+
+
+def composer_run(ec, cfg, experts, op: str, labels, gpp=None):
+    """``run(n=, fused_gn=)``: one combination of eval_composition's
+    operator ``op`` (the protocol's ``build_composer``) over the trained
+    gray and color experts, with the key of combination (2, 2); ``gpp``:
+    the guidance probe's tree."""
+    sp, cp, _ = experts
+
+    def run(n=EC_STEPS, fused_gn=True):
+        comp = ec.build_composer(op, cfg, (3, 3), 64, n, f0_ch=1,
+                                 fused_gn=fused_gn, gray_norm=True)
+        return comp(sp, cp, gpp, labels, labels, (2.0, 1.0), 28)
+    return run
+
+
+def composition_eval(card, kernels, attention, unet) -> dict:
+    """Phase 22. Returns the launches of each operator's eval_composition
+    call and of each per-combination check, and the trained experts."""
+    import glob
+    from composable_diffusion_models_tpu_torch import eval_composition as ec
+    from composable_diffusion_models_tpu_torch.convert import flax_init
+    from composable_diffusion_models_tpu_torch.models.probe import (
+        ProbeClassifier)
+    overrides = [f"--train.steps={EC_TRAIN}"]
+    log(f"eval_composition (shapes 3 x 3, 5000 images of 64 x 64 x 3 made on "
+        f"the card, holdout (2, 2); a gray unet64 shape expert on the "
+        f"unit-norm luma and an RGB unet64 color expert, base 64, (1, 2, 4), "
+        f"null token, label dropout 0.1, float32, batch 128; the preset's "
+        f"4000 steps cut to {EC_TRAIN}, the probe's 1200 to {EC_PROBE}, "
+        f"{EC_SAMPLES} samples a combination, the script's 200 steps cut to "
+        f"{EC_STEPS}, to {EC_ITO_STEPS} under ito); one call per operator, "
+        f"the experts trained in the first")
+    launches, forwards = {}, 9 * EC_STEPS * 2
+    for op in EC_OPS:
+        reset_launches(kernels, attention)
+        rep, sec = timed(lambda op=op: ec.eval_composition(
+            op=op, holdout=((2, 2),), samples_per_combo=EC_SAMPLES,
+            probe_steps=EC_PROBE,
+            n_steps=EC_ITO_STEPS if op == "ito" else EC_STEPS,
+            factor0_grayscale=True,
+            gray_norm=True, out=SMOKE_OUT, overrides=overrides))
+        counts = read_launches(kernels, attention)
+        want = dict.fromkeys(counts, 0)
+        if op != "ito":
+            want.update(groupnorm_silu=8 * forwards,
+                        groupnorm_silu_split=2 * forwards)
+        if op == "avg":
+            want["blend_eps"] = 9 * EC_STEPS
+        r = rep["ops"][op]
+        log(f"eval_composition op {op}: {sec:.1f} s ({card}; the first call "
+            f"trains the probe and both experts); launches {counts}; "
+            f"seen_joint_acc {r['seen_joint_acc']:.3f}, heldout_joint_acc "
+            f"{r['heldout_joint_acc']:.3f} (reported, not held: experts of "
+            f"{EC_TRAIN} steps); held-out margin "
+            f"{r['combos']['2,2']['joint_target_prob']:.3f}")
+        if counts != want:
+            fail(f"eval_composition {op} launched {counts}, expected {want}")
+        accs = [c["joint_acc"] for c in r["combos"].values()]
+        if len(accs) != 9 or not all(0.0 <= a <= 1.0 for a in accs):
+            fail(f"eval_composition {op}: bad report")
+        launches[f"eval_composition_{op}"] = counts
+    cfg = ec.get_config("shapes_ddim", overrides)
+    # the experts the four calls shared, from the protocol's cache
+    path, = glob.glob(os.path.join(SMOKE_OUT, "eval_composition", "run_0",
+                                   "results", "cache_experts_shapes_cell0_*"))
+    experts = torch.load(path, map_location="cuda", weights_only=True)
+    labels = torch.full((EC_SAMPLES,), 2, dtype=torch.long, device="cuda")
+    img = (EC_SAMPLES, 64, 64, 3)
+    for op in ("avg", "cfg", "proj"):
+        run = composer_run(ec, cfg, experts, op, labels)
+
+        def plain(op=op):
+            return (mock.patch.object(ec, "blend_eps", kernels.blend_eps_ref)
+                    if op == "avg" else contextlib.nullcontext())
+        launches[f"eval_composition_{op}_cell"] = k4_path(
+            card, f"eval_composition {op}, combination (2, 2) (held out), "
+            f"weights (2, 1), batch {EC_SAMPLES}, {EC_STEPS} steps, float32",
+            run, 2 * EC_STEPS, EC_SAMPLES, EC_STEPS, img, kernels, attention,
+            unet, also={"blend_eps": EC_STEPS} if op == "avg" else None,
+            plain=plain)
+        sync_free(f"eval_composition {op} sampler", lambda run=run: run(n=2))
+    run = composer_run(ec, cfg, experts, "ito", labels)
+    reset_launches(kernels, attention)
+    out, sec = timed(lambda: run(n=EC_ITO_STEPS))
+    counts = read_launches(kernels, attention)
+    log(f"eval_composition ito, combination (2, 2), batch {EC_SAMPLES}, "
+        f"{EC_ITO_STEPS} steps (jvps through both experts, GroupNorm in "
+        f"PyTorch ops): {sec:.3f} s = {sec / EC_ITO_STEPS * 1e3:.2f} ms/step"
+        f" ({card}); launches {counts}")
+    if any(counts.values()) or not bool(torch.isfinite(out).all()):
+        fail(f"eval_composition ito launched {counts} or is not finite")
+    sync_free("eval_composition ito sampler", lambda: run(n=2))
+    # the gradient route: cg steers the blend by a guidance probe's
+    # gradient; the experts see x without grad and stay on the kernels
+    run = composer_run(ec, cfg, experts, "cg", labels, flax_init(
+        ProbeClassifier((3, 3), in_channels=3), 22, "cuda"))
+    reset_launches(kernels, attention)
+    out, sec = timed(lambda: run(n=EC_CG_STEPS))
+    counts = read_launches(kernels, attention)
+    want = dict.fromkeys(counts, 0)
+    want.update(groupnorm_silu=16 * EC_CG_STEPS,
+                groupnorm_silu_split=4 * EC_CG_STEPS,
+                blend_eps=EC_CG_STEPS)
+    log(f"eval_composition cg (a guidance probe from its init, scale 2), "
+        f"batch {EC_SAMPLES}, {EC_CG_STEPS} steps: {sec:.3f} s; launches "
+        f"{counts}: the experts' and the blend's, none from the probe's "
+        f"gradient")
+    if counts != want or not bool(torch.isfinite(out).all()):
+        fail(f"eval_composition cg launched {counts}, expected {want}")
+    sync_free("eval_composition cg sampler", lambda: run(n=2))
+    return {"launches": launches, "experts": experts}
+
+
+def without_null_row(tree):
+    """A one-slot conditional UNet tree with the null token's embedding
+    row dropped: the expert restricted to its real labels, as a model
+    without the null token reads it."""
+    if isinstance(tree, dict):
+        return {k: v[:-1] if k == "embedding" else without_null_row(v)
+                for k, v in tree.items()}
+    return tree
+
+
+def superdiff_eval_and_ito(card, entry, kernels, attention, unet, compose,
+                           experts) -> dict:
+    """Phase 23. Returns the launches of the mixture protocol's call and of
+    its OR check."""
+    import glob
+    from composable_diffusion_models_tpu_torch import eval_superdiff as es
+    from composable_diffusion_models_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from composable_diffusion_models_tpu_torch.schedules import DDPMSchedule
+    from composable_diffusion_models_tpu_torch.utils import summarize, viz
+    launches = {}
+    sd_out = os.path.join(SMOKE_OUT, "superdiff_eval")
+    reset_launches(kernels, attention)
+    rep, sec = timed(lambda: es.eval_superdiff(
+        protocol="mixture", T=SD_T, train_steps=EV_TRAIN,
+        probe_steps=EV_PROBE, n_samples=EV_BATCH, out=sd_out))
+    counts = read_launches(kernels, attention)
+    forwards = 3 * 2 * SD_T
+    want = dict.fromkeys(counts, 0)
+    want.update(groupnorm_silu=8 * forwards, groupnorm_silu_split=2 * forwards)
+    log(f"eval_superdiff mixture (colored MNIST 28 x 28 x 3, 8192 digits; two "
+        f"unconditional unet64 experts on {{0-4}} and {{5-9}}, base 64, "
+        f"batch 256, DDPMSchedule(1000), EMA 0.999; the script's 12000 steps "
+        f"cut to {EV_TRAIN}, its probe's 2000 to {EV_PROBE}; OR, the AND "
+        f"heuristic and the rigorous AND at T {SD_T}, {EV_BATCH} samples "
+        f"each): "
+        f"{sec:.1f} s ({card}); launches {counts}")
+    for name, row in rep["ops"].items():
+        log(f"  {name}: frac_expert_a {row['frac_expert_a']:.3f}, balance "
+            f"error {row['mixture_balance_error']:.3f}, mean top probability "
+            f"{row['mean_max_prob']:.3f}, class histogram {row['class_hist']}"
+            f" (reported, not held)")
+    if counts != want:
+        fail(f"eval_superdiff mixture launched {counts}, expected {want}")
+    launches["eval_superdiff_mixture"] = counts
+    # the experts the call trained, from the protocol's cache; the OR job as
+    # the call ran it (its key, its batch), held before the clip
+    params = [torch.load(glob.glob(os.path.join(
+        sd_out, f"cache_mixture_expert{i}_*.pt"))[0], map_location="cuda",
+        weights_only=True) for i in range(2)]
+
+    def run(n=SD_T, fused_gn=True):
+        fn = es.mixture_stack(params, 64, n, "cuda", fused_gn)
+        (_, job), = es.mixture_jobs(fn, DDPMSchedule(num_timesteps=n),
+                                    EV_BATCH, [1.0], "cuda")[:1]
+        with torch.no_grad():
+            return job(entry._subkey(0, 50))
+    launches["eval_superdiff_or_check"] = k4_path(
+        card, f"eval_superdiff mixture OR job on the trained experts (batch "
+        f"{EV_BATCH}, {SD_T} timesteps, float32, before the clip)", run,
+        2 * SD_T, EV_BATCH, SD_T, (EV_BATCH, 28, 28, 3), kernels, attention,
+        unet, compose, "or_softmax")
+    sync_free("eval_superdiff mixture OR job", lambda: run(n=2))
+
+    mgr = CheckpointManager(SMOKE_OUT, "shapes_ddim")
+    sp, cp, _ = experts
+    for name, tree in (("shape_expert", sp), ("color_expert", cp)):
+        mgr.save(name, {"params": without_null_row(tree), "step": EC_TRAIN})
+    reset_launches(kernels, attention)
+    out, sec = timed(lambda: entry.compose_images_ito(
+        n_steps=CI_STEPS, gray_protocol="luma_norm", out=SMOKE_OUT))
+    counts = read_launches(kernels, attention)
+    w, h, pixels = read_png(os.path.join(mgr.results_dir,
+                                         "ito_composition_grid.png"))
+    grid = viz._to_numpy_grid(out.cpu().numpy(), 3)
+    same = (h, w) == grid.shape[:2] and bool((pixels == grid).all())
+    log(f"compose_images_ito on phase 22's experts (their null-token rows "
+        f"dropped; luma_norm, bs 1, 9 combinations, gaussian probes; the "
+        f"script's 1000 steps cut to {CI_STEPS}): {sec:.1f} s = "
+        f"{sec / (9 * CI_STEPS) * 1e3:.2f} ms/step ({card}); launches "
+        f"{counts}; PNG {w} x {h}, every pixel equal to the grid of the "
+        f"samples: {same}")
+    if any(counts.values()):
+        fail(f"compose_images_ito launched a kernel: {counts}")
+    if tuple(out.shape) != (9, 64, 64, 3) or \
+            not bool(torch.isfinite(out).all()):
+        fail("compose_images_ito: bad output")
+    if not same:
+        fail("compose_images_ito: the PNG does not hold the sample grid")
+
+    text = summarize.summarize_evals(
+        [os.path.join(SMOKE_OUT, "eval_composition", "run_0", "results"),
+         sd_out])
+    n_rows = len(text.splitlines()) - 2
+    log(f"summarize_evals over the reports of phases 22 and 23: {n_rows} "
+        f"rows (the mixture report has no joint accuracy: no row)")
+    if n_rows != len(EC_OPS):
+        fail(f"summarize_evals gave {n_rows} rows, expected {len(EC_OPS)}")
+    return launches
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2451,8 +2826,23 @@ def main() -> int:
     t0 = time.perf_counter()
     vae_launches = vae_paths(card, entry, kernels, attention)
     took[20] = time.perf_counter() - t0
+
+    # 21-23. the trained latent and 2-D experts; the composition scores:
+    # eval_composition, eval_superdiff, compose_images_ito, summarize_evals
+    t0 = time.perf_counter()
+    latent_launches = latent_trained(card, entry, kernels, attention,
+                                     samplers)
+    took[21] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    comp = composition_eval(card, kernels, attention, unet)
+    by_path.update(comp["launches"])
+    took[22] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_path.update(superdiff_eval_and_ito(card, entry, kernels, attention,
+                                          unet, compose, comp["experts"]))
+    took[23] = time.perf_counter() - t0
     shutil.rmtree(SMOKE_OUT, ignore_errors=True)
-    log("phases 18-20 took " + ", ".join(f"{k}: {v:.1f} s"
+    log("phases 18-23 took " + ", ".join(f"{k}: {v:.1f} s"
                                          for k, v in took.items()))
 
     # 21. the kernels line, then the result line. launches: each kernel's
@@ -2502,7 +2892,17 @@ def main() -> int:
                 "compose_latent_vae_weighted": vae_launches[
                     "compose_latent_vae_weighted"]["blend_eps"],
                 "compose_latent_vae_cfg": vae_launches[
-                    "compose_latent_vae_cfg"]["blend_eps"]}
+                    "compose_latent_vae_cfg"]["blend_eps"],
+                "latent_trained_ddim": latent_launches[
+                    "latent_trained_ddim"]["blend_eps"],
+                "latent_trained_em": latent_launches[
+                    "latent_trained_em"]["blend_eps"],
+                **{p: by_path[p]["blend_eps"] for p in by_path
+                   if p.startswith("eval_composition")}}
+        if row["name"] == "matmul":
+            row["launches_by_path"] = {
+                "latent_ddim": launches["matmul"],
+                **{p: c["matmul"] for p, c in latent_launches.items()}}
         if row["name"] in ("groupnorm_silu", "groupnorm_silu_split"):
             row["launches_by_path"] = {p: c[row["name"]]
                                        for p, c in by_path.items()}

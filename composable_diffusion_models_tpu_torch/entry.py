@@ -93,6 +93,21 @@ scripts do, checkpoints by name under ``CheckpointManager(out, cfg.name)``:
   its digit-conditional latent expert, composed in the 10-D latent by CFG
   or by a ``blend_eps`` blend under ancestral DDPM and decoded
   (``scripts/train_vae.py``, ``scripts/compose_latent_vae.py``).
+
+The latent and 2-D experts and the Ito-kappa image composition:
+
+* :func:`fit_pca` and :func:`train_latent_2d`: the PCA codec's files and a
+  2-D latent ``ScoreMLP`` expert trained on its encodings (one ``matmul``
+  launch), which :func:`sample_latent` serves (``scripts/fit_pca.py``,
+  ``scripts/train_latent_2d.py``).
+* :func:`superposition_2d`: two 2-D toy experts trained and composed with
+  their log-likelihoods (``scripts/superposition_2d.py``).
+* :func:`compose_images_ito`: a gray shape and a color expert read by name,
+  composed by the Ito-kappa ODE over the 3 x 3 labels
+  (``scripts/compose_images_ito.py``).
+
+The evaluation protocols live in ``eval_composition`` and
+``eval_superdiff``, the results table in ``utils.summarize``.
 """
 
 from __future__ import annotations
@@ -398,8 +413,8 @@ def sample_latent(params_list: Sequence[Any], pca: pca_codec.PCA, z_init,
 
     if op in ("ddim", "em"):
         stack = ExpertStack(lambda p, x, t: model.apply(p, t, x), params)
-        w = torch.as_tensor([1.0] * stack.k if weights is None else weights,
-                            dtype=torch.float32).to(dev)
+        w = compose.constant([1.0] * stack.k if weights is None else weights,
+                             torch.float32, dev)
         blend = blend_eps if fused_blend else weighted
 
         def eps_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -1490,3 +1505,218 @@ def compose_latent_vae(preset: str = "mnist_image", name: str = "vae",
     viz.save_grid(imgs, os.path.join(mgr.results_dir,
                                      f"vae_composed_{mode}.png"), nrow=4)
     return imgs
+
+
+# ------------------------------------------- the latent and 2-D experts
+def fit_pca(preset: str = "mnist_latent2d", components: int = 2,
+            out: str = "outputs", name: str = "pca",
+            overrides: Sequence[str] = (), key=None,
+            device=None) -> pca_codec.PCA:
+    """Fits the PCA latent codec on a preset's dataset: the path of
+    ``scripts/fit_pca.py``. The dataset comes from
+    ``builders.build_dataset`` with the config's seed (``key``: an int or a
+    ``rng.Draws`` in its place), the fit is ``ops.pca.fit_pca`` on the
+    device, and ``ops.pca.save_pca`` writes ``<out>/<name>_mean.npy``,
+    ``_components.npy`` and ``_explained_variance.npy``. Prints the
+    explained variance as the script does and returns the codec on the
+    device. ``device=None`` is the CUDA card."""
+    dev = resolve_device(device)
+    cfg = get_config(preset, overrides)
+    key = cfg.train.seed if key is None else key
+    images, _ = build_dataset(cfg, key, dev)
+    pca = pca_codec.fit_pca(images, components)
+    os.makedirs(out, exist_ok=True)
+    prefix = os.path.join(out, name)
+    pca_codec.save_pca(prefix, pca)
+    ev = [float(v) for v in pca.explained_variance]
+    print(f"PCA({components}) fit on {images.shape[0]} examples; "
+          f"explained variance {ev}; saved to {prefix}_*.npy")
+    return pca
+
+
+def train_latent_2d(preset: str = "mnist_latent2d",
+                    pca: Union[pca_codec.PCA, str, None] = None,
+                    classes: Optional[Sequence[int]] = None,
+                    name: str = "latent_expert", out: str = "outputs",
+                    overrides: Sequence[str] = (), key=None, init: Any = None,
+                    device=None) -> Tuple[Any, torch.Tensor, str]:
+    """Trains a 2-D PCA-latent ``ScoreMLP`` expert: the path of
+    ``scripts/train_latent_2d.py``. The preset's dataset (``classes``
+    restricts it where the dataset takes classes) is encoded by the codec
+    (``pca``: a :class:`ops.pca.PCA` or the prefix of its files, default
+    ``<out>/pca``), one ``matmul`` launch; the MLP is trained on the
+    latents with ``train.train_expert`` (t first, chunks of min(200,
+    steps)) under ``VPSchedule(kind=cfg.schedule.kind)``. Keys as the
+    script's: the data and the initial tree from the config's seed
+    (``key`` in its place; ``init``: a tree in place of the initial one),
+    the training from ``fold_in(key, 1)``.
+
+    Saves ``{name}_final`` ({"params", "step"}) under
+    ``CheckpointManager(out, cfg.name)`` and the losses as
+    ``results/{name}_loss.npy``; the script's latent scatter and loss plot
+    need matplotlib and are not drawn. Returns (params, losses, checkpoint
+    path), the tree on the device. No kernel runs in training.
+    ``device=None`` is the CUDA card."""
+    dev = resolve_device(device)
+    cfg = get_config(preset, overrides)
+    if classes:
+        cfg.data.classes = tuple(classes)
+    key = cfg.train.seed if key is None else key
+    schedule = VPSchedule(kind=cfg.schedule.kind)
+    model = build_model(cfg)
+    images, _ = build_dataset(cfg, key, dev)
+    codec = load_pca(os.path.join(out, "pca") if pca is None else pca, dev)
+    z = codec.encode(images)
+    params = (init_params(model, key, dev) if init is None
+              else _float_tree(init, model, dev))
+    t = cfg.train
+    params, losses = train.train_expert(
+        _subkey(key, 1), model.apply, params, schedule, z, steps=t.steps,
+        batch_size=t.batch_size, lr=t.lr, time_first=True,
+        steps_per_scan=min(200, t.steps))
+    mgr = CheckpointManager(out, cfg.name)
+    path = mgr.save(name, {"params": params, "step": t.steps})
+    np.save(os.path.join(mgr.results_dir, f"{name}_loss.npy"),
+            losses.cpu().numpy())
+    print(f"saved {path}  final_loss={float(losses[-1]):.4f}")
+    return params, losses, path
+
+
+def superposition_2d(steps: int = 20000, hidden: int = 512, bs: int = 512,
+                     n_sample_steps: int = 1000,
+                     out: str = "outputs/superposition_2d", seed: int = 0,
+                     sanity: bool = False, key=None,
+                     init: Optional[Sequence[Any]] = None,
+                     probes: Optional[torch.Tensor] = None,
+                     device=None) -> dict:
+    """The 2-D SUPERDIFF teaching example end to end: the path of
+    ``scripts/superposition_2d.py``. Two ``ScoreMLP(hidden, depth 4, 2)``
+    experts trained on the up and down halves of the 4-Gaussian grid
+    (``data.toy2d``, 65536 points each) under ``VPSchedule(kind=
+    "jax_faithful")``, each with the script's negated closure (the net
+    learns -eps) at batch ``bs``, lr 2e-4, t first, chunks of min(500,
+    steps); then 512 points composed by ``samplers.superposition_2d`` over
+    ``n_sample_steps`` with the per-expert log-likelihoods tracked.
+    ``sanity`` cuts to the script's 500 training and 100 sampling steps.
+
+    Keys as the script's: expert i's data, initial tree and training all
+    from ``fold_in(seed, i)`` (i = 1 up, 2 down), the initial points and
+    the sampler's probes from ``seed`` (``key`` in its place; ``init``: the
+    two initial trees; ``probes``: (n_sample_steps, 512, 2) in place of the
+    sampler's draws). Prints ``|ll1 - ll2|`` mean as the script does and
+    writes the samples and log-likelihoods as ``.npy`` under ``out`` (the
+    script's scatter plots need matplotlib). Returns {"samples": (512, 2),
+    "ll": (2, 512), "experts": the two trees, "losses": theirs}; no kernel
+    runs (``F.linear`` MLPs). ``device=None`` is the CUDA card."""
+    dev = resolve_device(device)
+    if sanity:
+        steps, n_sample_steps = 500, 100
+    key = seed if key is None else key
+    sch = VPSchedule(kind="jax_faithful")
+    m = ScoreMLP(hidden=hidden, depth=4, out_dim=2)
+    os.makedirs(out, exist_ok=True)
+
+    def train_one(k, up: bool, p0):
+        pts = data.toy2d(k, 65536, up=up, device=dev)
+        p = (flax_init(m, k, dev) if p0 is None
+             else _cast(p0, dev, torch.float32))
+        # the net learns sdlogqdx = -eps (the notebook's (eps + net)^2)
+        return train.train_expert(
+            k, lambda pp, t, x: -m.apply(pp, t, x), p, sch, pts,
+            steps=steps, batch_size=bs, lr=2e-4, time_first=True,
+            steps_per_scan=min(500, steps))
+
+    trained = [train_one(_subkey(key, 1 + i), up,
+                         None if init is None else init[i])
+               for i, up in enumerate((True, False))]
+    fns = tuple((lambda x, t, p=p: m.apply(p, t.expand(x.shape[0]), x))
+                for p, _ in trained)
+    draws = as_draws(key, dev)
+    x_init = draws.normal((512, 2))
+    with torch.no_grad():  # forward-mode AD: not inference_mode
+        x, ll = samplers.superposition_2d(
+            fns, sch, None if probes is not None else draws.generator(),
+            x_init, n_sample_steps,
+            probes=None if probes is None else probes.to(dev))
+    np.save(os.path.join(out, "composed_and.npy"), x.cpu().numpy())
+    np.save(os.path.join(out, "log_likelihoods.npy"), ll.cpu().numpy())
+    print(f"2D superposition artifacts in {out}; |ll1 - ll2| mean = "
+          f"{float((ll[0] - ll[1]).abs().mean()):.3f}")
+    return {"samples": x, "ll": ll, "experts": [p for p, _ in trained],
+            "losses": [loss for _, loss in trained]}
+
+
+@torch.no_grad()  # not inference_mode: ito_kappa_ode runs forward-mode AD
+def compose_images_ito(preset: str = "shapes_ddim",
+                       shape_expert: str = "shape_expert",
+                       color_expert: str = "color_expert",
+                       n_steps: int = 1000, bs: int = 1,
+                       probe: str = "gaussian", gray_protocol: str = "white",
+                       out: str = "outputs", seed: int = 42,
+                       overrides: Sequence[str] = (), x_init=None,
+                       probes: Optional[torch.Tensor] = None,
+                       device=None) -> torch.Tensor:
+    """Ito-kappa (equal-density AND) composition of a 1-channel shape
+    expert and a 3-channel color expert over the 3 x 3 label grid: the
+    path of ``scripts/compose_images_ito.py``. The two class-conditional
+    UNets (the preset's base and widths, 3 classes each, no null token) are
+    read by name from ``CheckpointManager(out, cfg.name)``; the shape
+    expert sees ``experts.rgb_to_gray(x)`` and its eps is lifted by
+    ``gray_to_rgb`` (the unit-norm projection and its adjoint under
+    ``gray_protocol="luma_norm"``, else plain luma and the channel
+    broadcast); ``samplers.ito_kappa_ode`` on their sigma-scaled scores
+    -eps over ``VPSchedule(kind=cfg.schedule.kind)``, ``n_steps`` steps,
+    ``probe`` Hutchinson probes.
+
+    Both experts run their GroupNorm in PyTorch ops (``fused_gn=False``)
+    and no cross-attention: the divergence is a ``torch.func.jvp``
+    through them, and the kernels have no forward-mode rule. Draws as the
+    script's: combo (s, c)'s initial noise from ``fold_in(seed, 3 s + c)``
+    and its probes from ``fold_in(seed, 100 + 3 s + c)`` (``x_init``: (9,
+    bs, H, W, 3) and ``probes``: (9, n_steps, 2, bs, H, W, 3) in their
+    place). Writes ``results/ito_composition_grid.png`` (3 bs a row) and
+    returns the (9 bs, H, W, 3) float32 samples, combos in row-major
+    order. ``device=None`` is the CUDA card."""
+    if gray_protocol not in GRAY_PROTOCOLS:
+        raise ValueError(f"gray_protocol must be one of {GRAY_PROTOCOLS}, "
+                         f"got {gray_protocol!r}")
+    dev = resolve_device(device)
+    cfg = get_config(preset, overrides)
+    schedule = VPSchedule(kind=cfg.schedule.kind)
+    size = cfg.data.img_size
+    mgr = CheckpointManager(out, cfg.name)
+    shape_model, color_model = (
+        UNet(in_channels=ch, base_dim=cfg.model.base_dim,
+             channel_mults=tuple(cfg.model.channel_mults), num_classes=(3,))
+        for ch in (1, 3))
+    sp, cp = (_float_tree(mgr.load(n, device=dev)["params"], shape_model,
+                          dev) for n in (shape_expert, color_expert))
+    normalized = gray_protocol == "luma_norm"
+    grids = []
+    for s_lab in range(3):
+        for c_lab in range(3):
+            i = 3 * s_lab + c_lab
+            sl = torch.full((bs,), s_lab, dtype=torch.long, device=dev)
+            cl = torch.full((bs,), c_lab, dtype=torch.long, device=dev)
+
+            def shape_score(x, t, sl=sl):
+                return -gray_to_rgb(shape_model.apply(
+                    sp, rgb_to_gray(x, normalized), t, sl), normalized)
+
+            def color_score(x, t, cl=cl):
+                return -color_model.apply(cp, x, t, cl)
+
+            x = (Draws(fold_in(seed, i), dev).normal((bs, size, size, 3))
+                 if x_init is None else torch.as_tensor(
+                     x_init[i], dtype=torch.float32).to(dev))
+            gen = (Draws(fold_in(seed, 100 + i), dev).generator()
+                   if probes is None else None)
+            grids.append(samplers.ito_kappa_ode(
+                (shape_score, color_score), schedule, gen, x, n_steps,
+                probe=probe,
+                probes=None if probes is None else probes[i].to(dev)))
+    samples = torch.cat(grids)
+    path = os.path.join(mgr.results_dir, "ito_composition_grid.png")
+    viz.save_grid(samples, path, nrow=3 * bs)
+    print(f"Ito-kappa composition grid saved to {path}")
+    return samples

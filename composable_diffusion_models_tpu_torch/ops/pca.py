@@ -50,14 +50,18 @@ class PCA:
 def fit_pca(x: torch.Tensor, n_components: int) -> PCA:
     """Fit PCA on (N, ...) data flattened to (N, D): eigendecomposition of
     the float32 (D, D) feature covariance, axes in descending order of
-    explained variance."""
+    explained variance. The decomposition runs in float64 and its result
+    is rounded to float32: the float32 solver fails to converge on a
+    covariance with many equal eigenvalues, as the ``shapes_latent``
+    preset's data give (three distinct images: rank 2 of 4096)."""
     flat = x.reshape(x.shape[0], -1).float()
     mean = flat.mean(dim=0)
     centered = flat - mean
     cov = (centered.t() @ centered) / (flat.shape[0] - 1)
-    evals, evecs = torch.linalg.eigh(cov)            # ascending
+    evals, evecs = torch.linalg.eigh(cov.double())   # ascending
     order = torch.argsort(evals).flip(0)[:n_components]
-    return PCA(mean, evecs[:, order].t().contiguous(), evals[order])
+    return PCA(mean, evecs[:, order].t().float().contiguous(),
+               evals[order].float())
 
 
 def save_pca(path_prefix: str, pca: PCA) -> None:

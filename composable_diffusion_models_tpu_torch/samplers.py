@@ -394,7 +394,7 @@ def ito_kappa_ode(score_fns: Tuple[EpsFn, EpsFn], schedule: VPSchedule,
         raise ValueError(f"unknown probe kind: {probe!r}")
     dt = (t_max - t_min) / n_steps
     ts_host = t_max - dt * torch.arange(n_steps, dtype=torch.float32)
-    ts = ts_host.to(x_init.device)
+    ts = compose.constant(ts_host.tolist(), torch.float32, x_init.device)
     rows = zip(schedule.sigma(ts_host).tolist(),
                schedule.dlog_alpha_dt(ts_host).tolist(),
                (0.5 * schedule.g2(ts_host)).tolist())
@@ -428,7 +428,7 @@ def superposition_2d(score_fns: Tuple[EpsFn, EpsFn], schedule: VPSchedule,
         raise ValueError(f"unknown probe kind: {probe!r}")
     dt = 1.0 / n_steps
     ts_host = 1.0 - dt * torch.arange(n_steps, dtype=torch.float32)
-    ts = ts_host.to(x_init.device)
+    ts = compose.constant(ts_host.tolist(), torch.float32, x_init.device)
     rows = zip(schedule.sigma(ts_host).tolist(),
                schedule.dlog_alpha_dt(ts_host).tolist(),
                schedule.beta(ts_host).tolist())

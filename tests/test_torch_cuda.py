@@ -723,3 +723,78 @@ def test_config_paths_need_the_card_by_default(monkeypatch):
                  entry.compose_latent_vae):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+EVAL_OV = ["--model.base_dim=8", "--model.channel_mults=(1,2)",
+           "--data.img_size=16", "--train.steps=2", "--train.batch_size=4",
+           "--data.n=27"]
+
+
+def test_latent_2d_paths_launch_their_kernels(tmp_path):
+    """``fit_pca`` no kernel; ``train_latent_2d`` one ``matmul`` launch
+    (the encode) and no other; ``superposition_2d`` none."""
+    ov = ["--data.n=256", "--train.steps=3", "--train.batch_size=16"]
+    n0, m0 = _launches(), kernels.matmul.launches
+    entry.fit_pca("shapes_latent", out=str(tmp_path),
+                  overrides=ov + ["--data.img_size=16"])
+    assert _launches() == n0 and kernels.matmul.launches == m0
+    params, losses, _ = entry.train_latent_2d(
+        "shapes_latent", out=str(tmp_path),
+        overrides=ov + ["--data.img_size=16"])
+    torch.cuda.synchronize()
+    assert kernels.matmul.launches == m0 + 1 and _launches() == n0
+    assert losses.is_cuda and losses.shape == (3,)
+    res = entry.superposition_2d(steps=2, hidden=16, bs=8, n_sample_steps=3,
+                                 out=str(tmp_path / "sp"))
+    assert _launches() == n0 and kernels.matmul.launches == m0 + 1
+    assert res["samples"].is_cuda and bool(torch.isfinite(res["ll"]).all())
+
+
+def test_eval_composition_launches_per_operator(tmp_path):
+    """Per call (9 combinations, 2 steps, 2 samples): ``avg`` 5 + 1 K4
+    launches per expert forward (a UNet of two levels; 2 forwards a step)
+    and one K3 a step; ``cfg`` and ``proj`` the K4 launches alone; ``ito``
+    none; ``cg`` the experts' and the blend's, none from the probe's
+    gradient."""
+    from composable_diffusion_models_tpu_torch import eval_composition as ec
+    kw = dict(samples_per_combo=2, probe_steps=2, n_steps=2,
+              factor0_grayscale=True, gray_norm=True, out=str(tmp_path),
+              overrides=EVAL_OV)
+    fwd = 9 * 2 * 2
+    for op, want in (("avg", (5 * fwd, fwd, 18)),
+                     ("cfg", (5 * fwd, fwd, 0)),
+                     ("proj", (5 * fwd, fwd, 0)), ("ito", (0, 0, 0)),
+                     ("cg", (5 * fwd, fwd, 18))):
+        n0 = _launches()
+        rep = ec.eval_composition(op=op, **kw)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(n0, _launches())) == want, op
+        assert len(rep["ops"][op]["combos"]) == 9
+
+
+def test_eval_superdiff_and_ito_launches(tmp_path):
+    """The mixture protocol at its sanity sizes: 8 + 2 K4 launches per
+    forward, 2 forwards a step, 3 jobs of T 8; ``compose_images_ito``
+    none."""
+    from composable_diffusion_models_tpu_torch import eval_superdiff as es
+    from composable_diffusion_models_tpu_torch.checkpoint import \
+        CheckpointManager
+    from composable_diffusion_models_tpu_torch.models.unet import UNet
+    n0 = _launches()
+    rep = es.eval_superdiff(sanity=True, out=str(tmp_path))
+    torch.cuda.synchronize()
+    fwd = 3 * 2 * 8
+    assert tuple(b - a for a, b in zip(n0, _launches())) == (8 * fwd,
+                                                             2 * fwd, 0)
+    assert set(rep["ops"]) == {"OR", "AND_heuristic", "AND_rigorous"}
+    mgr = CheckpointManager(str(tmp_path), "shapes_ddim")
+    for i, (name, ch) in enumerate((("shape_expert", 1),
+                                    ("color_expert", 3))):
+        m = UNet(in_channels=ch, base_dim=8, channel_mults=(1, 2),
+                 num_classes=(3,))
+        mgr.save(name, {"params": convert.unet_torch_layout(
+            convert.from_flax(convert.init_params(m, seed=i))), "step": 0})
+    n0 = _launches()
+    out = entry.compose_images_ito(n_steps=2, out=str(tmp_path),
+                                   overrides=EVAL_OV[:3])
+    assert _launches() == n0 and out.is_cuda and out.shape == (9, 16, 16, 3)

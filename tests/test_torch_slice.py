@@ -105,13 +105,26 @@ def test_expert_stack_matches_jax():
             experts.per_expert(torch.zeros(2, 2)))
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """device=None means the card: without one the entry point raises and
-    never runs on the CPU."""
+    never runs on the CPU (the serving path's, and those of the latent,
+    2-D and evaluation scripts)."""
+    from composable_diffusion_models_tpu_torch import (eval_composition,
+                                                       eval_superdiff)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     trees = [convert.from_flax(convert.init_params(entry.FLAGSHIP, seed=0))]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry.sample(trees, np.zeros((1, 28, 28, 1), np.float32), n_steps=1)
+    out = str(tmp_path)
+    for call in (entry.fit_pca, entry.train_latent_2d,
+                 entry.superposition_2d, entry.compose_images_ito,
+                 eval_composition.eval_composition,
+                 eval_superdiff.eval_superdiff,
+                 lambda out: eval_superdiff.eval_superdiff("factored",
+                                                           out=out)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(out=out)
+    assert not any(tmp_path.iterdir())
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
@@ -139,13 +152,16 @@ def test_port_imports_nothing_of_jax():
     # the walk reaches every slice's modules: the serving paths', the
     # latent slice's, the training path's, the DDPM samplers' and the
     # shapes gate's and NLL path's (data, models.unet, models.probe,
-    # samplers, convert, eval, gate, entry, ops.kernels, ops.attention)
+    # samplers, convert, eval, gate, entry, ops.kernels, ops.attention),
+    # the config-driven paths' and the evaluation scripts'
     assert {PKG.name + "." + m for m in (
         "models.dit", "models.unet", "models.mlp", "models.probe",
         "models.embeddings", "ops.kernels", "ops.attention", "ops.pca",
         "ops.divergence", "ops._build", "compose", "experts", "samplers",
         "schedules", "convert", "entry", "train", "data", "gate", "eval",
-        "checkpoint", "rng")} <= set(mods)
+        "checkpoint", "rng", "builders", "utils.config", "utils.viz",
+        "eval_composition", "eval_superdiff", "utils.summarize")} \
+        <= set(mods)
     code = ("import sys\n"
             + "".join(f"sys.modules[{n!r}] = None\n" for n in _FORBIDDEN)
             + "import importlib\n"
