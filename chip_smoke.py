@@ -24,7 +24,14 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     (|x| around 10 and 80); ``fused_dit_block`` also at the shapes gate's
     DiT cells, (64, 64, 256) bf16, one 64-token image a block;
     ``blend_eps`` also at the blends of phases 19 and 20, beside the device
-    time of an empty kernel launch (the floor under its bound);
+    time of an empty kernel launch (the floor under its bound); and every
+    kernel at the new shapes of phases 24-27, timed beside its bound and
+    the library call: ``fused_dit_block`` in bf16 at the frontier
+    candidates' (256, 4, 384) with heads of 48 (the rows route) and (256,
+    16, 192) with 6 heads, and at (256, 16, 256); ``short_seq_attention``
+    at heads of 48; ``groupnorm_silu`` and its two-part form at the CIFAR
+    experts' float32 levels and the unet32 gate's bf16 ones;
+    ``flash_attention`` at heads of 160 and 256;
  4. the DiT path: 3 composed ``dit_p14_d256_l4`` experts (random weights
     from a seed), 50-step DDIM, batch 2048, bf16, through
     ``entry.sample``: finite output, exactly 600 ``fused_dit_block``
@@ -84,7 +91,7 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     and one timed run at batch 64;
 14. gray + color DDIM (``entry.sample_gray_color``): a 1-channel and a
     3-channel ``unet64``, 64 x 64, batch 128, float32, the ``shapes_ddim``
-    preset's 200 steps, ``op="avg"`` (white) and ``op="proj"``
+    preset's 200 steps cut to 100, ``op="avg"`` (white) and ``op="proj"``
     (luma_norm);
 15. the DDIM family on path A's two bf16 experts, batch 128, 20 steps
     each: eta = 1, x0 and v prediction, one corrector step below t = 0.5,
@@ -168,12 +175,39 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     AND heuristic and the rigorous AND at T 1000, 256 samples: exactly 8 +
     2 K4 launches per forward; the per-class histogram and half balance
     reported), its OR job on the trained experts (read from the
-    protocol's cache) at batch 256 before the clip as a path of 11-15
-    (phase 3 holds K4 at its shapes);
+    protocol's cache) at batch 256 before the clip: exact launches,
+    finite; its samples diverge, so the kernel path is held where nothing
+    clips: the two experts' eps stack at the middle timestep on the job's
+    initial noise, ``fused_gn=True`` against ``False``, per element at 1e-5
+    of the scale (phase 3 holds K4 at its shapes);
     ``entry.compose_images_ito`` on phase 22's experts (no kernel; the
     grid's PNG read back); ``utils.summarize.summarize_evals`` over the
     reports;
-24. one ``kernels`` JSON line, then the result line.
+24. ``entry.compose_cfg`` by preset: on phase 18's ``colored_mnist_guided``
+    expert (ancestral DDPM over its 1000 timesteps, batch 64 = 192 rows,
+    K4) and on an ``ito_cross_attention`` expert trained through
+    ``entry.train_image`` (DDIM at the preset's 1000 steps, K4 and K6 on
+    trained weights); each with exact launches, the grid's PNG read back,
+    and its eps at the middle step held against the same call with
+    ``fused_gn=False, flash_attn=False`` (1e-5 of the scale);
+25. ``entry.compose_cifar``: the CIFAR-10 stand-in through the binary
+    batches, the probe, two unconditional ``unet64`` experts (32 x 32 x 3,
+    float32, batch 256) trained a few hundred steps, solo ancestral DDPM
+    and SUPERDIFF OR at T 1000: exact K4 launches per job, the report and
+    the four grids read back, the experts' eps stack at the middle
+    timestep against ``fused_gn=False``; ``or_mixture_balance_error``
+    reported;
+26. ``entry.quality_gate_flagship`` over ``unet64`` and ``unet32`` at full
+    width (three bf16 experts each, batch 256, training cut), baseline
+    ``unet64``: exact K4 launches per scoring pass, the verdicts reported
+    (BASELINE held), the reports and grids read back, a trained expert's
+    eps against ``fused_gn=False`` (bf16 on the mean, float32 per element);
+27. ``frontier.frontier_sweep`` over ``dit_p14_d384_l6`` (heads of 48, K1's
+    rows route) and ``dit_p7_d192_l6_h6`` at one cut budget against the
+    committed ``unet64`` report, the MFU taken from phase 4: exact K1
+    launches per scoring pass, the table read back, each candidate's
+    trained expert against the plain version of K1;
+28. one ``kernels`` JSON line, then the result line.
 
 Exits with code 2 and prints no result where there is no CUDA card.
 """
@@ -287,15 +321,16 @@ FA_PAD_SHAPE = (4, 4, 256, 77)
 # three full-width experts takes TRAIN_STEPS steps at the gate's batch, the
 # probe PROBE_STEPS (the committed PASS took 48000 and 2000); the served
 # program and the gate's scoring run at the gate's 256 samples, 50 steps
-TRAIN_STEPS, TRAIN_BATCH, PROBE_STEPS, GATE_SAMPLES = 500, 256, 500, 256
+TRAIN_STEPS, TRAIN_BATCH, PROBE_STEPS, GATE_SAMPLES = 300, 256, 500, 256
 PROFILE_TRAIN_STEPS = 20
 # discrete-DDPM paths: colored_mnist_guided (batch 64 of 28 x 28 x 3, 1000
 # timesteps; SD_CUT for the cases cut for time), shapes_bbox (64 x 64 x 3,
 # 500 timesteps, batch 4 and a timed batch 64); the gray + color DDIM of
-# shapes_ddim (batch 128, 200 steps); the DDIM family on path A's experts
+# shapes_ddim (batch 128, its 200 steps cut to GC_STEPS for time); the DDIM
+# family on path A's experts
 SD_BATCH, SD_T, SD_CUT = 64, 1000, 100
 BBOX_BATCH, BBOX_BATCH_TIMED, BBOX_T = 4, 64, 500
-GC_BATCH, GC_STEPS, FAM_STEPS = 128, 200, 20
+GC_BATCH, GC_STEPS, FAM_STEPS = 128, 100, 20
 PROFILE_STEPS, UNFUSED_STEPS = 5, 20
 # the shapes gate (phase 16): scripts/quality_gate_shapes.py's protocol cut
 # to the phase's time: its 8192 shapes of 64 x 64 x 3 (made on the card),
@@ -373,7 +408,39 @@ EC_TRAIN, EC_PROBE, EC_STEPS, EC_ITO_STEPS, EC_SAMPLES = 300, 300, 50, 20, 32
 EC_OPS = ("avg", "cfg", "proj", "ito")
 EC_CG_STEPS = 10
 EV_TRAIN, EV_PROBE = 300, 300
-CI_STEPS = 20
+CI_STEPS = 10
+# phases 24-27, each at its script's published widths, with training and
+# probe steps cut for time and nothing else (the script's value printed
+# beside each). 24: compose_cfg by preset on phase 18's
+# colored_mnist_guided expert (ancestral DDPM over the preset's 1000
+# timesteps, its batch 64) and on an ito_cross_attention expert trained
+# CC_TRAIN of the preset's 4000 steps (DDIM at the preset's 1000 steps,
+# batch 64); 25: compose_cifar (base 64, T 1000, 32 x 32 x 3 float32, 64
+# samples a set) with its 12000 training and 2000 probe steps cut to
+# CF_TRAIN and CF_PROBE; 26: quality_gate_flagship over unet64 and unet32
+# (batch 256, bf16, 256 samples of 50 steps) with its 12000 and 2000 cut
+# to FG_TRAIN and FG_PROBE; 27: frontier_sweep over FR_CANDIDATES at one
+# budget of FR_TRAIN steps (its 24000-96000)
+CC_TRAIN, CC_STEPS, CF_TRAIN, CF_PROBE = 200, 1000, 100, 100
+FG_CONFIGS, FG_TRAIN, FG_PROBE = ("unet64", "unet32"), 100, 100
+FR_CANDIDATES, FR_TRAIN = ("dit_p14_d384_l6", "dit_p7_d192_l6_h6"), 150
+CFG_BATCH, CIFAR_BATCH = 64, 64
+# phase 3 at those phases' new shapes: fused_dit_block at the frontier
+# candidates' bf16 launches (B, T, D, heads) (D 384: the rows route, heads
+# of 48; D 192 at 16 tokens) and the flagship's width at 16 tokens;
+# short_seq_attention at heads of 48; groupnorm_silu at the CIFAR experts'
+# float32 levels (batch 64) and the unet32 gate's bf16 levels (batch 256),
+# with their two-part forms; flash_attention at heads past 128
+K1_FRONTIER = [(GATE_SAMPLES, 4, 384, 8), (GATE_SAMPLES, 16, 192, 6),
+               (GATE_SAMPLES, 16, 256, 8)]
+K2_FRONTIER = (GATE_SAMPLES, 4, 384, 8)
+GN_CIFAR = [(CIFAR_BATCH, 32, 32, 64), (CIFAR_BATCH, 16, 16, 128),
+            (CIFAR_BATCH, 8, 8, 256), ((CIFAR_BATCH, 16, 16), (256, 128)),
+            ((CIFAR_BATCH, 32, 32), (128, 64))]
+GN_UNET32 = [(GATE_SAMPLES, 28, 28, 32), (GATE_SAMPLES, 14, 14, 64),
+             (GATE_SAMPLES, 7, 7, 128), ((GATE_SAMPLES, 14, 14), (128, 64)),
+             ((GATE_SAMPLES, 28, 28), (64, 32))]
+FA_WIDE_D = (160, 256)
 
 
 def log(msg: str) -> None:
@@ -1433,19 +1500,23 @@ def training_path(card, entry, kernels, attention) -> int:
     return served["fused_dit_block"]
 
 
-def check_ddpm_gn_shapes(kernels) -> list:
+def check_ddpm_gn_shapes(kernels, shapes=None, dtype=torch.float32,
+                         label: str = "DDPM paths", seed: int = 11) -> list:
     """Phase 3 for groupnorm_silu and its two-part form at the shapes of
-    the discrete-DDPM paths (float32, as they compute), each against its
-    plain version and timed. Returns their rows for the JSON line."""
+    the discrete-DDPM paths (float32, as they compute; or ``shapes`` in
+    ``dtype``, another path's), each against its plain version and timed.
+    Returns their rows for the JSON line."""
     import torch.nn.functional as F
-    gen = torch.Generator().manual_seed(11)
+    gen = torch.Generator().manual_seed(seed)
     rows = []
-    for shape in GN_DDPM_SHAPES + GN_DDPM_SPLIT:
+    es = torch.empty((), dtype=dtype).element_size()
+    name_t = str(dtype)[6:]
+    for shape in shapes or GN_DDPM_SHAPES + GN_DDPM_SPLIT:
         split = len(shape) == 2
         bhw, chans = (shape if split else (shape[:3], (shape[3],)))
         c = sum(chans)
-        parts = [(torch.randn(*bhw, cc, generator=gen) * 2 + 0.5).cuda()
-                 for cc in chans]
+        parts = [(torch.randn(*bhw, cc, generator=gen) * 2 + 0.5).to(
+            "cuda", dtype) for cc in chans]
         scale = (1 + 0.1 * torch.randn(c, generator=gen)).cuda()
         bias = (0.1 * torch.randn(c, generator=gen)).cuda()
         whole = torch.cat(parts, -1) if split else parts[0]
@@ -1465,20 +1536,21 @@ def check_ddpm_gn_shapes(kernels) -> list:
             got = call()
         torch.cuda.synchronize()
         ref = kernels.groupnorm_silu_ref(whole, scale, bias, 8)
-        err, tol = max_err(got, ref), tolerance(torch.float32, ref, 1e-5)
+        err, tol = max_err(got, ref), tolerance(dtype, ref, 1e-5)
         ms, dev, plain_ms = time_ms(call), device_ms(call), time_ms(plain)
         lib = lib_dev = None
         if not split:
             x_nchw = parts[0].permute(0, 3, 1, 2)
+            w_lib, b_lib = scale.to(dtype), bias.to(dtype)
 
             def library():
-                return F.silu(F.group_norm(x_nchw, 8, scale, bias, 1e-5))
+                return F.silu(F.group_norm(x_nchw, 8, w_lib, b_lib, 1e-5))
             lib, lib_dev = time_ms(library), device_ms(library, match="")
-        nbytes = 2 * whole.numel() * 4 + 2 * c * 4
-        bms, by = bound_ms(12 * whole.numel(), nbytes, torch.float32)
+        nbytes = 2 * whole.numel() * es + 2 * c * 4
+        bms, by = bound_ms(12 * whole.numel(), nbytes, dtype)
         name = "groupnorm_silu_split" if split else "groupnorm_silu"
         desc = f"{bhw} + {chans}" if split else str(shape)
-        log(f"{name} float32 {desc} G=8 (DDPM paths): max_abs_err={err:.3e} "
+        log(f"{name} {name_t} {desc} G=8 ({label}): max_abs_err={err:.3e} "
             f"tol={tol:.3e}; kernel {ms:.4f} ms ({dev:.4f} ms on the device "
             f"in a trace), plain {plain_ms:.4f} ms, "
             + (f"F.group_norm + F.silu {lib:.4f} ms ({lib_dev:.4f} ms on the "
@@ -1486,7 +1558,7 @@ def check_ddpm_gn_shapes(kernels) -> list:
             + f"bound {bms:.4f} ms ({by}; {nbytes / 1e6:.2f} MB)")
         if not err <= tol:
             fail(f"{name} disagrees with its plain version at {desc}")
-        rows.append(dict(name=name, shape=desc, dtype="float32",
+        rows.append(dict(name=name, shape=desc, dtype=name_t,
                          max_abs_err=err, ms=ms, dev_ms=dev,
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          library_ms=lib, library_dev_ms=lib_dev))
@@ -1731,7 +1803,8 @@ def ddpm_paths(card, convert, entry, unet, kernels, attention,
                                            n_steps=n, **kw)
         launches[f"gray_color_{op}"] = k4_path(
             card, f"gray + color DDIM, op {op} ({protocol}; batch "
-            f"{GC_BATCH}, 64 x 64, {GC_STEPS} steps, float32)", run_gc,
+            f"{GC_BATCH}, 64 x 64, the preset's 200 steps cut to {GC_STEPS}, "
+            f"float32)", run_gc,
             2 * GC_STEPS, GC_BATCH, GC_STEPS, img, kernels, attention, unet)
         sync_free(f"gray + color DDIM, op {op}", lambda run=run_gc: run(n=2))
     return launches
@@ -1806,7 +1879,9 @@ def k1_at(kernels, b, t, d, h) -> dict:
     flops = 2 * b * t * 12 * d * d + 4 * b * t * t * d
     nbytes = 2 * (2 * b * t * d + 12 * d * d + 9 * d)
     bms, by = bound_ms(flops, nbytes, dtype)
-    log(f"fused_dit_block bf16 B={b} T={t} D={d} H={h} (one image a block): "
+    rows = kernels.block_rows(dtype, t, d)
+    log(f"fused_dit_block bf16 B={b} T={t} D={d} H={h} (heads of {d // h}; "
+        f"{kernels.block_route(dtype, t, d)} route, {rows} rows a block): "
         f"max_abs_err={err:.3e} tol={tol:.3e}; kernel {ms:.4f} ms ({dev:.4f} "
         f"ms on the device in a trace), plain {plain:.4f} ms, bound "
         f"{bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
@@ -1814,8 +1889,9 @@ def k1_at(kernels, b, t, d, h) -> dict:
     if not err <= tol:
         fail(f"fused_dit_block disagrees with its plain version at "
              f"{(b, t, d)}")
-    return dict(shape=[b, t, d, h], max_abs_err=err, ms=ms, device_ms=dev,
-                plain_ms=plain, bound_ms=bms, bound_by=by)
+    return dict(shape=[b, t, d, h], route=kernels.block_route(dtype, t, d),
+                max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=None)
 
 
 def loss_curve(label: str, losses) -> None:
@@ -2575,7 +2651,7 @@ def without_null_row(tree):
     return tree
 
 
-def superdiff_eval_and_ito(card, entry, kernels, attention, unet, compose,
+def superdiff_eval_and_ito(card, entry, kernels, attention,
                            experts) -> dict:
     """Phase 23. Returns the launches of the mixture protocol's call and of
     its OR check."""
@@ -2622,11 +2698,32 @@ def superdiff_eval_and_ito(card, entry, kernels, attention, unet, compose,
                                     EV_BATCH, [1.0], "cuda")[:1]
         with torch.no_grad():
             return job(entry._subkey(0, 50))
-    launches["eval_superdiff_or_check"] = k4_path(
-        card, f"eval_superdiff mixture OR job on the trained experts (batch "
-        f"{EV_BATCH}, {SD_T} timesteps, float32, before the clip)", run,
-        2 * SD_T, EV_BATCH, SD_T, (EV_BATCH, 28, 28, 3), kernels, attention,
-        unet, compose, "or_softmax")
+    # the OR job as the call ran it: exact launches, finite before the
+    # clip; its samples diverge (every element past 1), so the kernel path
+    # is held where nothing clips or saturates: the two experts' eps stack
+    # at the middle timestep, on the job's own initial noise
+    label = (f"eval_superdiff mixture OR job on the trained experts (batch "
+             f"{EV_BATCH}, {SD_T} timesteps, float32, before the clip)")
+    run(n=2)  # warm-up
+    reset_launches(kernels, attention)
+    out, sec = timed(run)
+    counts = read_launches(kernels, attention)
+    want = dict.fromkeys(counts, 0)
+    want.update(groupnorm_silu=8 * 2 * SD_T, groupnorm_silu_split=2 * 2 * SD_T)
+    log(f"{label}: {tuple(out.shape)} in {sec:.3f} s = "
+        f"{sec / SD_T * 1e3:.3f} ms/step ({card}); launches {counts}; |x| >= "
+        f"1 at {float((out.abs() >= 1).float().mean()):.3f} of the elements, "
+        f"largest |x| {float(out.abs().max()):.4g}")
+    if counts != want or not bool(torch.isfinite(out).all()) or \
+            tuple(out.shape) != (EV_BATCH, 28, 28, 3):
+        fail(f"{label}: launches {counts} (expected {want}) or a bad output")
+    launches["eval_superdiff_or_check"] = counts
+    x = es.start(entry._subkey(0, 50), (EV_BATCH, 28, 28, 3), None,
+                 "cuda")[0]
+    hold_eps("eval_superdiff mixture, the two experts' eps stack",
+             es.mixture_stack(params, 64, SD_T, "cuda", True),
+             es.mixture_stack(params, 64, SD_T, "cuda", False), x,
+             SD_T // 2, 1e-5)
     sync_free("eval_superdiff mixture OR job", lambda: run(n=2))
 
     mgr = CheckpointManager(SMOKE_OUT, "shapes_ddim")
@@ -2665,6 +2762,466 @@ def superdiff_eval_and_ito(card, entry, kernels, attention, unet, compose,
         fail(f"summarize_evals gave {n_rows} rows, expected {len(EC_OPS)}")
     return launches
 
+def k2_at(kernels, b, t, d, h) -> dict:
+    """short_seq_attention in bf16 at (B, T, D) with H heads against its
+    plain version, timed beside SDPA and its bound; the numbers for the
+    JSON line."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(24)
+    dtype, hd = torch.bfloat16, d // h
+    qkv = torch.randn(b, t, 3 * d, generator=gen).to("cuda", dtype)
+    got = kernels.short_seq_attention(qkv, h)
+    torch.cuda.synchronize()
+    ref = kernels.short_seq_attention_ref(qkv, h)
+    err, tol = max_err(got, ref), tolerance(dtype, ref, 1e-5)
+    q, k, v = (qkv.reshape(b, t, 3, h, hd)[:, :, i].transpose(1, 2)
+               .contiguous() for i in range(3))
+    ms = time_ms(lambda: kernels.short_seq_attention(qkv, h))
+    dev = device_ms(lambda: kernels.short_seq_attention(qkv, h))
+    plain = time_ms(lambda: kernels.short_seq_attention_ref(qkv, h))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    lib_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                        match="")
+    nbytes = 2 * (b * t * 3 * d + b * t * d)
+    bms, by = bound_ms(4 * b * t * t * d, nbytes, dtype)
+    log(f"short_seq_attention bf16 B={b} T={t} D={d} H={h} (heads of {hd}): "
+        f"max_abs_err={err:.3e} tol={tol:.3e}; kernel {ms:.4f} ms ({dev:.4f} "
+        f"ms on the device in a trace), plain {plain:.4f} ms, SDPA "
+        f"{lib:.4f} ms ({lib_dev:.4f} ms on the device), bound {bms:.4f} ms "
+        f"({by}; {nbytes / 1e6:.2f} MB)")
+    if not err <= tol:
+        fail(f"short_seq_attention disagrees with its plain version at "
+             f"heads of {hd}")
+    return dict(shape=[b, t, d, h], max_abs_err=err, ms=ms, device_ms=dev,
+                plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+                library_dev_ms=lib_dev)
+
+
+def fa_wide(attention) -> list:
+    """flash_attention at heads past 128 (FA_WIDE_D, 160 padded to 256) at
+    FA_PAD_SHAPE on (B, N, H, D) views, float32 and bf16, against its plain
+    version, timed beside SDPA and its bound."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(27)
+    b, h, nq, nk = FA_PAD_SHAPE
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.empty((), dtype=dtype).element_size()
+        for d in FA_WIDE_D:
+            q, k, v = (torch.randn(b, n, h, d, generator=gen)
+                       .to("cuda", dtype).transpose(1, 2)
+                       for n in (nq, nk, nk))
+            n0 = attention.flash_attention.launches
+            got = attention.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            launched = attention.flash_attention.launches - n0
+            ref = attention.flash_attention_ref(q, k, v)
+            err, tol = max_err(got, ref), tolerance(dtype, ref, 1e-5)
+
+            def call():
+                return attention.flash_attention(q, k, v)
+
+            def library():
+                return F.scaled_dot_product_attention(q, k, v)
+            ms, dev = time_ms(call), device_ms(call)
+            plain = time_ms(lambda: attention.flash_attention_ref(q, k, v))
+            lib, lib_dev = time_ms(library), device_ms(library, match="")
+            nbytes = es * (2 * b * h * nq * d + 2 * b * h * nk * d)
+            bms, by = bound_ms(4 * b * h * nq * nk * d, nbytes, dtype)
+            name = str(dtype)[6:]
+            log(f"flash_attention {name} B={b} H={h} Nq={nq} Nk={nk} D={d} "
+                f"(run at {attention.flash_head_dim(d)}, "
+                f"{attention.flash_route(dtype, h, nk, 256, (0,) * 12)} "
+                f"route): max_abs_err={err:.3e} tol={tol:.3e}, launches "
+                f"{launched}; kernel {ms:.4f} ms ({dev:.4f} ms on the device "
+                f"in a trace), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
+                f"({lib_dev:.4f} ms on the device), bound {bms:.4f} ms ({by})")
+            if not (err <= tol and launched == 1):
+                fail(f"flash_attention at D={d} disagrees with its plain "
+                     f"version")
+            rows.append(dict(shape=[b, h, nq, nk, d], dtype=name,
+                             max_abs_err=err, ms=ms, device_ms=dev,
+                             plain_ms=plain, bound_ms=bms, bound_by=by,
+                             library_ms=lib, library_dev_ms=lib_dev))
+    return rows
+
+
+def check_frontier_kernels(kernels, attention) -> dict:
+    """Phase 3 at the shapes of phases 24-27 (K1_FRONTIER, K2_FRONTIER,
+    GN_CIFAR, GN_UNET32, FA_WIDE_D). Returns {kernel: [rows]} for the JSON
+    line."""
+    gn = (check_ddpm_gn_shapes(kernels, GN_CIFAR, torch.float32,
+                               "the CIFAR experts", 25)
+          + check_ddpm_gn_shapes(kernels, GN_UNET32, torch.bfloat16,
+                                 "the unet32 gate", 26))
+    return {"fused_dit_block": [k1_at(kernels, *s) for s in K1_FRONTIER],
+            "short_seq_attention": [k2_at(kernels, *K2_FRONTIER)],
+            "groupnorm_silu": [r for r in gn if r["name"] == "groupnorm_silu"],
+            "groupnorm_silu_split": [r for r in gn if r["name"]
+                                     == "groupnorm_silu_split"],
+            "flash_attention": fa_wide(attention)}
+
+
+def hold_eps(label: str, kernel_fn, plain_fn, x, t, tol: float,
+             bf16: bool = False) -> None:
+    """eps of the kernel path against the plain path on the same x at a
+    middle step t: per element within ``tol`` of the scale (float32), or
+    on the mean within 0.05 (bf16, PERF.md's bar for a bf16 path), the
+    largest difference printed beside it. Neither eps is clipped or
+    saturated where the final samples are."""
+    with torch.inference_mode():
+        got, ref = kernel_fn(x, t), plain_fn(x, t)
+    torch.cuda.synchronize()
+    diff = (got.float() - ref.float()).abs()
+    scale = max(1.0, float(ref.float().abs().max()))
+    log(f"  {label}: eps at a middle step (t = {float(t):g}), kernel path "
+        f"vs plain path on the same x: max |diff| {float(diff.max()):.3e}, "
+        f"mean {float(diff.mean()):.3e} at scale {scale:.4g}; held "
+        + ("on the mean, bar 0.05" if bf16 else
+           f"per element, bar {tol:g} of the scale"))
+    ok = (float(diff.mean()) <= 0.05 if bf16
+          else float(diff.max()) <= tol * scale)
+    if not (ok and bool(torch.isfinite(got).all())):
+        fail(f"{label}: the kernel path's eps disagrees with the plain "
+             f"path's")
+
+
+@contextlib.contextmanager
+def recorded_grids():
+    """Records every grid ``utils.viz.save_grid`` writes (path, images,
+    nrow), to read each PNG back against the grid of its samples."""
+    from composable_diffusion_models_tpu_torch.utils import viz
+    box, orig = [], viz.save_grid
+
+    def save(images, path, nrow=8, **kw):
+        box.append((path, images.detach().float().cpu(), nrow))
+        return orig(images, path, nrow=nrow, **kw)
+    with mock.patch.object(viz, "save_grid", save):
+        yield box
+
+
+def same_pngs(grids, label: str) -> None:
+    """Each recorded PNG holds, pixel for pixel, the grid of its samples."""
+    from composable_diffusion_models_tpu_torch.utils import viz
+    for path, images, nrow in grids:
+        w, h, pixels = read_png(path)
+        grid = viz._to_numpy_grid(images.numpy(), nrow)
+        if (h, w) != grid.shape[:2] or not (pixels == grid).all():
+            fail(f"{label}: {path} does not hold the sample grid")
+    log(f"  {label}: {len(grids)} PNGs read back, every pixel equal to "
+        f"viz._to_numpy_grid of their samples")
+
+
+@contextlib.contextmanager
+def captured_training(entry):
+    """Records the (EMA tree, losses) of every ``train.train_expert``
+    call."""
+    box, orig = [], entry.train.train_expert
+
+    def run(*a, **kw):
+        out = orig(*a, **kw)
+        box.append(out)
+        return out
+    with mock.patch.object(entry.train, "train_expert", run):
+        yield box
+
+
+@contextlib.contextmanager
+def cfg_eps_at(entry, call: int):
+    """Records the CFG eps_fn a ``compose_cfg`` call builds and the (x, t)
+    of its ``call``-th evaluation."""
+    box, orig = {}, entry.make_cfg_eps_fn
+
+    def make(*a, **kw):
+        fn, n = orig(*a, **kw), [0]
+        box["fn"] = fn
+
+        def rec(x, t):
+            n[0] += 1
+            if n[0] == call:
+                box["x"], box["t"] = x.clone(), torch.as_tensor(t).clone()
+            return fn(x, t)
+        return rec
+    with mock.patch.object(entry, "make_cfg_eps_fn", make):
+        yield box
+
+
+def compose_cfg_paths(card, entry, kernels, attention) -> dict:
+    """Phase 24. Returns the launches of each compose_cfg call."""
+    log(f"ito_cross_attention: one dual-conditioned cross-attention UNet "
+        f"(base 64, (1, 2, 4), digit and 3-colour slots with the null token) "
+        f"through entry.train_image, batch 128, float32, VPSchedule; the "
+        f"preset's 4000 steps cut to {CC_TRAIN} for time")
+    train_named(card, entry, kernels, attention, "ito_cross_attention",
+                ("ito_expert",), (None,), [f"--train.steps={CC_TRAIN}"],
+                True, 128)
+    launches = {}
+    # (preset, expert, digit, color, its sampler's steps (the preset's
+    # 1000) and the override that sets them, flash_attention launches a
+    # forward)
+    cases = (("colored_mnist_guided", "guided_a", 3, 3, SD_T,
+              "--schedule.num_timesteps", 0),
+             ("ito_cross_attention", "ito_expert", 3, 1, CC_STEPS,
+              "--sample.n_steps", 5))
+    for preset, name, digit, color, forwards, steps_key, fa in cases:
+        label = (f"compose_cfg {preset} ({name}, digit {digit}, color "
+                 f"{color}, guidance (2, 2), batch {CFG_BATCH} = "
+                 f"{3 * CFG_BATCH} rows, {forwards} steps, float32)")
+        cut = f"{steps_key}=2"
+        entry.compose_cfg(preset, name, digit, color, out=SMOKE_OUT,
+                          overrides=[cut])  # warm-up
+        with cfg_eps_at(entry, forwards // 2) as mid, \
+                recorded_grids() as grids:
+            reset_launches(kernels, attention)
+            out, sec = timed(lambda: entry.compose_cfg(
+                preset, name, digit, color, out=SMOKE_OUT,
+                overrides=[f"{steps_key}={forwards}"]))
+            counts = read_launches(kernels, attention)
+        want = dict.fromkeys(counts, 0)
+        want.update(groupnorm_silu=8 * forwards,
+                    groupnorm_silu_split=2 * forwards,
+                    flash_attention=fa * forwards)
+        log(f"{label}: {tuple(out.shape)} in {sec:.3f} s = "
+            f"{CFG_BATCH / sec:.1f} images/s, {sec / forwards * 1e3:.3f} "
+            f"ms/step ({card}); launches {counts}; |x| >= 1 at "
+            f"{float((out.abs() >= 1).float().mean()):.3f} of the elements")
+        if tuple(out.shape) != (CFG_BATCH, 28, 28, 3) or \
+                not bool(torch.isfinite(out).all()):
+            fail(f"{label}: bad output")
+        if counts != want:
+            fail(f"{label}: launches {counts}, expected {want}")
+        same_pngs(grids, label)
+        with cfg_eps_at(entry, 1) as plain:
+            reset_launches(kernels, attention)
+            entry.compose_cfg(preset, name, digit, color, out=SMOKE_OUT,
+                              overrides=[cut], fused_gn=False,
+                              flash_attn=False)
+            unfused = read_launches(kernels, attention)
+        if any(unfused.values()):
+            fail(f"{label}: fused_gn=False, flash_attn=False launched "
+                 f"{unfused}")
+        hold_eps(label, mid["fn"], plain["fn"], mid["x"], mid["t"], 1e-5)
+        launches[f"compose_cfg_{preset}"] = counts
+    return launches
+
+
+def cifar_path(card, entry, kernels, attention) -> dict:
+    """Phase 25. Returns the launches of the compose_cifar call."""
+    from composable_diffusion_models_tpu_torch import eval_superdiff as es
+    out_dir = os.path.join(SMOKE_OUT, "cifar_split")
+    jobs = []
+
+    def per_job(name):
+        orig = getattr(entry.samplers, name)
+
+        def run(*a, **kw):
+            reset_launches(kernels, attention)
+            out, sec = timed(lambda: orig(*a, **kw))
+            jobs.append((name, read_launches(kernels, attention), sec, out))
+            return out
+        return mock.patch.object(entry.samplers, name, run)
+    with captured_training(entry) as trained, recorded_grids() as grids, \
+            per_job("ddpm_ancestral"), per_job("superdiff"):
+        rep, sec = timed(lambda: entry.compose_cifar(
+            T=SD_T, train_steps=CF_TRAIN, probe_steps=CF_PROBE,
+            out=out_dir))
+    total = {k: sum(c[k] for _, c, _, _ in jobs) for k in jobs[0][1]}
+    log(f"compose_cifar (the procedural CIFAR-10 stand-in through the binary "
+        f"batches, 8192 images of 32 x 32 x 3; two unconditional unet64 "
+        f"experts on classes {{0-4}} and {{5-9}}, float32, batch 256, "
+        f"DDPMSchedule(1000), EMA 0.999; the script's 12000 steps cut to "
+        f"{CF_TRAIN}, its probe's 2000 to {CF_PROBE}; solo ancestral and "
+        f"SUPERDIFF OR at T {SD_T}, {CIFAR_BATCH} samples each): {sec:.1f} s "
+        f"({card}); launches {total}")
+    for i, (_, losses) in enumerate(trained):
+        loss_curve(f"CIFAR expert {i}", losses)
+    for (name, counts, s, out), forwards in zip(jobs, (SD_T, SD_T,
+                                                       2 * SD_T)):
+        want = dict.fromkeys(counts, 0)
+        want.update(groupnorm_silu=8 * forwards,
+                    groupnorm_silu_split=2 * forwards)
+        log(f"  {name}: {s:.3f} s = {s / SD_T * 1e3:.3f} ms/step, "
+            f"{CIFAR_BATCH / s:.1f} images/s; launches {counts}; |x| >= 1 "
+            f"at {float((out.abs() >= 1).float().mean()):.3f}")
+        if counts != want or not bool(torch.isfinite(out).all()) or \
+                tuple(out.shape) != (CIFAR_BATCH, 32, 32, 3):
+            fail(f"compose_cifar {name}: launches {counts} (expected "
+                 f"{want}) or a bad output")
+    for name, row in rep["sets"].items():
+        log(f"  {name}: frac_split_a {row['frac_split_a']:.3f}, mean top "
+            f"probability {row['mean_max_prob']:.3f}, class histogram "
+            f"{row['class_hist']}")
+    log(f"  or_mixture_balance_error {rep['or_mixture_balance_error']:.3f} "
+        f"(reported, not held: experts of {CF_TRAIN} steps)")
+    with open(os.path.join(out_dir, "cifar_split_composition.json")) as f:
+        if json.load(f) != json.loads(json.dumps(rep)):
+            fail("compose_cifar: the report on disk is not the one returned")
+    same_pngs(grids, "compose_cifar")
+    params = [t for t, _ in trained]
+    x = es.start(entry._subkey(0, 50), (CIFAR_BATCH, 32, 32, 3), None,
+                 "cuda")[0]
+    hold_eps("compose_cifar, the two experts' eps stack",
+             es.mixture_stack(params, 64, SD_T, "cuda", True),
+             es.mixture_stack(params, 64, SD_T, "cuda", False), x,
+             SD_T // 2, 1e-5)
+    return {"compose_cifar": total}
+
+
+def gate_passes(records, per_forward: dict, label: str) -> None:
+    """Each scoring pass of a gate (4 sets of 50 DDIM steps: 3 experts
+    solo and the 3 composed, 300 expert forwards) launched exactly
+    ``per_forward`` a forward, and nothing else."""
+    want = None
+    for counts, _ in records:
+        want = dict.fromkeys(counts, 0)
+        want.update({k: 300 * v for k, v in per_forward.items()})
+        if counts != want:
+            fail(f"{label}: a scoring pass launched {counts}, expected "
+                 f"{want}")
+    if want is None:
+        fail(f"{label}: no scoring pass ran")
+    log(f"  {label}: {len(records)} scoring passes of 300 expert forwards, "
+        f"each launching {want}: " + ", ".join(f"{s:.2f} s"
+                                             for _, s in records))
+
+
+def flagship_gate_path(card, entry, kernels, attention) -> dict:
+    """Phase 26. Returns the launches of the first scoring pass."""
+    from composable_diffusion_models_tpu_torch import gate
+    out_dir = os.path.join(SMOKE_OUT, "quality_gate")
+    records = []
+    with captured_training(entry) as trained, recorded_grids() as grids, \
+            per_call_launches(entry, "_gate_score", kernels, attention,
+                              records):
+        reps, sec = timed(lambda: entry.quality_gate_flagship(
+            configs=FG_CONFIGS, train_steps=FG_TRAIN, probe_steps=FG_PROBE,
+            baseline=FG_CONFIGS[0], out=out_dir))
+    log(f"quality_gate_flagship over {FG_CONFIGS} (1-channel UNets, bf16, "
+        f"three experts each on digits {{0-2}}, {{3-5}}, {{6-8}} at batch "
+        f"256; the script's 12000 steps cut to {FG_TRAIN}, its probe's 2000 "
+        f"to {FG_PROBE}; {GATE_SAMPLES} samples of 50 DDIM steps a set; "
+        f"baseline {FG_CONFIGS[0]}): {sec:.1f} s ({card})")
+    for i, (_, losses) in enumerate(trained):
+        loss_curve(f"gate expert {i} ({FG_CONFIGS[i // 3]})", losses)
+    gate_passes(records, {"groupnorm_silu": 8, "groupnorm_silu_split": 2},
+                "quality_gate_flagship")
+    for cfg, rep in reps.items():
+        fails = [k for k, v in rep["criteria"].items() if not v["ok"]]
+        log(f"  {cfg}: verdict {rep['verdict']} (reported, not held; failed "
+            f"criteria {fails}); composed in-union "
+            f"{rep['composed']['in_set_frac']:.3f}, entropy "
+            f"{rep['composed']['class_entropy']:.3f}, FID-lite "
+            f"{rep['composed']['fid_probe']:.2f}; n_samples "
+            f"{rep['n_samples']}")
+        with open(os.path.join(out_dir,
+                               f"quality_{cfg}_s{FG_TRAIN}.json")) as f:
+            if json.load(f) != json.loads(json.dumps(rep)):
+                fail(f"quality_gate_flagship: {cfg}'s report on disk is not "
+                     f"the one returned")
+    if reps[FG_CONFIGS[0]]["verdict"] != "BASELINE":
+        fail("the baseline configuration is not labelled BASELINE")
+    same_pngs(grids, "quality_gate_flagship")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    x = torch.randn(GATE_SAMPLES, 28, 28, 1, generator=gen, device="cuda")
+    t = torch.tensor(0.5, device="cuda")
+    tree = trained[0][0]
+    for dtype in (torch.bfloat16, torch.float32):
+        model, serve = gate.build_model(FG_CONFIGS[0], dtype)
+        p, = entry.load_unets([tree], "cuda", dtype)
+        hold_eps(f"{FG_CONFIGS[0]} gate expert 0, {str(dtype)[6:]}",
+                 lambda x_, t_: serve(p, x_.to(dtype), t_.to(dtype)),
+                 lambda x_, t_: model.apply(p, x_.to(dtype), t_.to(dtype)),
+                 x, t, 1e-5, bf16=dtype == torch.bfloat16)
+    return records[0][0]
+
+
+def frontier_path(card, entry, dit, kernels, attention, mfu: float) -> dict:
+    """Phase 27. Returns the launches of the first scoring pass."""
+    from composable_diffusion_models_tpu_torch import frontier, gate
+    out_dir = os.path.join(SMOKE_OUT, "frontier")
+    records = []
+    with captured_training(entry) as trained, recorded_grids() as grids, \
+            per_call_launches(entry, "_gate_score", kernels, attention,
+                              records):
+        table, sec = timed(lambda: frontier.frontier_sweep(
+            candidates=FR_CANDIDATES, budgets=(FR_TRAIN,), out=out_dir,
+            mfu=mfu, probe_steps=FG_PROBE))
+    log(f"frontier_sweep over {FR_CANDIDATES} at one budget of {FR_TRAIN} "
+        f"steps (the script's 24000-96000; batch 256, bf16, probe "
+        f"{FG_PROBE} steps, {GATE_SAMPLES} samples of 50 DDIM steps a set), "
+        f"against the committed artifacts/quality_gate_r4/quality_unet64."
+        f"json, MFU {mfu:.4f} measured on the DiT path (phase 4): {sec:.1f} s "
+        f"({card})")
+    for i, (_, losses) in enumerate(trained):
+        loss_curve(f"frontier expert {i} ({FR_CANDIDATES[i // 3]})", losses)
+    for cand in FR_CANDIDATES:
+        model, _ = gate.build_model(cand)
+        log(f"  {cand}: {model.n_tokens} tokens of {model.dim}, heads of "
+            f"{model.dim // model.n_heads}: fused_dit_block's "
+            f"{kernels.block_route(torch.bfloat16, model.n_tokens, model.dim)}"
+            f" route")
+    gate_passes(records, {"fused_dit_block": 6}, "frontier cells (depth 6)")
+    for row in table["rows"]:
+        log(f"  {row}")
+    with open(os.path.join(out_dir, "frontier_table.json")) as f:
+        if json.load(f) != json.loads(json.dumps(table)):
+            fail("frontier_sweep: the table on disk is not the one returned")
+    if [r["config"] for r in table["rows"]] != list(FR_CANDIDATES) or \
+            any(r["verdict"] not in ("PASS", "FAIL") for r in table["rows"]):
+        fail(f"frontier_sweep: a cell did not run: {table['rows']}")
+    same_pngs(grids, "frontier_sweep")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    x = torch.randn(GATE_SAMPLES, 28, 28, 1, generator=gen, device="cuda")
+    t = torch.tensor([0.5], device="cuda")
+    for c, cand in enumerate(FR_CANDIDATES):
+        tree = trained[3 * c][0]
+        for dtype, tol in ((torch.bfloat16, None), (torch.float32, 2e-4)):
+            model, serve = gate.build_model(cand, dtype)
+            p, = entry.load_experts([tree], "cuda", dtype)
+
+            def plain(x_, t_, model=model, p=p, dtype=dtype):
+                with mock.patch.object(dit, "fused_dit_block",
+                                       kernels.fused_dit_block_ref):
+                    return dit.make_folded_apply(model)(p, x_.to(dtype),
+                                                        t_.to(dtype))
+
+            def kernel(x_, t_, serve=serve, p=p, dtype=dtype):
+                return serve(p, x_.to(dtype), t_.to(dtype))
+            label = f"{cand} expert 0, {str(dtype)[6:]}"
+            hold_eps(label, kernel, plain, x, t, tol, bf16=tol is None)
+            # the EMA trees of a short run keep most of the zero-initialised
+            # head, so eps is small: each block's output (the O(1) token
+            # stream) is held too, at K1's own bars
+            k1_blocks_held(label, lambda: kernel(x, t), kernels, dit, dtype)
+    return records[0][0]
+
+
+def k1_blocks_held(label: str, run, kernels, dit, dtype) -> None:
+    """Runs ``run()`` (one served DiT forward) with every
+    ``fused_dit_block`` launch also computed by its plain version on the
+    same inputs; each block's output is held at K1's bar (float32 2e-4,
+    bf16 4 ulps, of that output's scale)."""
+    errs, orig = [], dit.fused_dit_block
+
+    def both(*args):
+        got = orig(*args)
+        ref = kernels.fused_dit_block_ref(*args)
+        errs.append((max_err(got, ref), tolerance(dtype, ref, 2e-4),
+                     float(ref.float().abs().max())))
+        return got
+    with mock.patch.object(dit, "fused_dit_block", both), \
+            torch.inference_mode():
+        run()
+    torch.cuda.synchronize()
+    log(f"  {label}: each of the {len(errs)} blocks against K1's plain "
+        f"version on the trained weights: max_abs_err "
+        + ", ".join(f"{e:.2e}" for e, _, _ in errs) + " at output scales "
+        + ", ".join(f"{sc:.3g}" for _, _, sc in errs))
+    if not errs or any(e > tol for e, tol, _ in errs):
+        fail(f"{label}: a block of the served expert disagrees with K1's "
+             f"plain version")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2697,6 +3254,8 @@ def main() -> int:
     # where traces keep their device records (after the profiles of the
     # later phases, a CUDA-only trace came back without them)
     k1_gate = k1_at(kernels, *SG_K1)
+    # every kernel at the new shapes of phases 24-27
+    frontier_rows = check_frontier_kernels(kernels, attention)
 
     # 4. main path
     trees = [convert.from_flax(convert.init_params(entry.FLAGSHIP, seed=i))
@@ -2721,8 +3280,10 @@ def main() -> int:
         fail(f"fused_dit_block launched {launches['fused_dit_block']} "
              f"times, expected {want}")
     gflop = entry.gflop_per_image()
+    # the serving MFU the frontier's projected images/s take (phase 27)
+    mfu = gflop * 1e9 * BATCH / sec / PEAK_FLOPS[torch.bfloat16]
     log(f"  {gflop:.3f} GFLOP/image -> {gflop * BATCH / sec / 1e3:.1f} "
-        f"TFLOP/s achieved")
+        f"TFLOP/s achieved, MFU {mfu:.4f} of the 989 TFLOP/s bf16 peak")
     with mock.patch.object(dit, "fused_dit_block",
                            kernels.fused_dit_block_ref):
         out_plain, sec_plain = run_sampler(entry, params, x_init, N_STEPS)
@@ -2839,10 +3400,28 @@ def main() -> int:
     took[22] = time.perf_counter() - t0
     t0 = time.perf_counter()
     by_path.update(superdiff_eval_and_ito(card, entry, kernels, attention,
-                                          unet, compose, comp["experts"]))
+                                          comp["experts"]))
     took[23] = time.perf_counter() - t0
+
+    # 24-27. compose_cfg by preset (phase 18's guided expert, a trained
+    # ito_cross_attention expert), compose_cifar, the flagship gate over
+    # unet64 / unet32, the frontier sweep over two DiT candidates
+    t0 = time.perf_counter()
+    cfg_launches = compose_cfg_paths(card, entry, kernels, attention)
+    by_path.update(cfg_launches)
+    took[24] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_path.update(cifar_path(card, entry, kernels, attention))
+    took[25] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_path["quality_gate_flagship_pass"] = flagship_gate_path(
+        card, entry, kernels, attention)
+    took[26] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frontier_pass = frontier_path(card, entry, dit, kernels, attention, mfu)
+    took[27] = time.perf_counter() - t0
     shutil.rmtree(SMOKE_OUT, ignore_errors=True)
-    log("phases 18-23 took " + ", ".join(f"{k}: {v:.1f} s"
+    log("phases 18-27 took " + ", ".join(f"{k}: {v:.1f} s"
                                          for k, v in took.items()))
 
     # 21. the kernels line, then the result line. launches: each kernel's
@@ -2878,12 +3457,21 @@ def main() -> int:
              torch.float32),
             ("matmul", "matmul", "pallas_kernels.py:229", torch.float32))]}
     for row in line["kernels"]:
+        # every kernel of phases 24-27 at their new shapes (phase 3)
+        if row["name"] in frontier_rows:
+            row["frontier_shapes"] = frontier_rows[row["name"]]
         if row["name"] == "fused_dit_block":
             row["launches_by_path"] = {
                 "dit": launches["fused_dit_block"],
                 "shapes_gate": gate_run["launches"]["dit_p8_d256_l8"][
-                    "fused_dit_block"]}
+                    "fused_dit_block"],
+                "frontier_gate_pass": frontier_pass["fused_dit_block"]}
             row["shapes_gate_shape"] = k1_gate
+        if row["name"] == "flash_attention":
+            row["launches_by_path"] = {
+                "B": launches["flash_attention"],
+                "compose_cfg_ito": cfg_launches[
+                    "compose_cfg_ito_cross_attention"]["flash_attention"]}
         if row["name"] == "blend_eps":
             row["launches_by_path"] = {
                 "latent_ddim": launches["blend_eps"],

@@ -1,5 +1,5 @@
 // flash_attention: softmax(q k^T * scale) v for q (B, H, Nq, D) and k, v
-// (B, H, Nk, D), any Nq and Nk, D in {16, 32, 64, 128}, float32 or
+// (B, H, Nk, D), any Nq and Nk, D in {16, 32, 64, 128, 256}, float32 or
 // bfloat16, to out (B, H, Nq, D) in q's type. Every tensor comes with its
 // (batch, head, row) strides in elements; the last axis has stride 1.
 //
@@ -47,11 +47,13 @@
 // shared memory in tiles of BK = 4096 / D keys, widened to float32 once per
 // block, and are read as float4 broadcasts. Scores are taken 8 keys at a
 // time (the score tile), so the running state is updated with one rescale
-// per 8 keys.
+// per 8 keys. Heads wider than 128 (the TPU kernel takes any D) take this
+// route only: at D = 256 eight lanes share a query, 32 elements each, and
+// a shared-memory tile holds 16 keys (16 KB of K and of V, as at D = 128).
 //
-// ROUTE_WGMMA (bfloat16 from Nk * D = 2048 on). Bound by operations: both
-// products on the tensor cores. A block owns 128 queries of one (batch,
-// head) and is three warpgroups. One thread of warpgroup 0 copies K and V
+// ROUTE_WGMMA (bfloat16 from Nk * D = 2048 on, D <= 128). Bound by
+// operations: both products on the tensor cores. A block owns 128
+// queries of one (batch, head) and is three warpgroups. One thread of warpgroup 0 copies K and V
 // tiles of BKV keys (128, or 64 at D = 128) into a 4-stage ring of
 // 128-byte-swizzled rows with TMA (keys past Nk land as zeros), the bytes
 // counted down on the stage's "full" mbarrier. Warpgroups 1 and 2 own 64
@@ -706,7 +708,7 @@ static int launch_route(int route, const Args& a) {
     case ROUTE_SHORT: return launch_short<T, D>(a);
     case ROUTE_TILES: return launch_tiles<T, D>(a);
     case ROUTE_WGMMA:
-      if constexpr (sizeof(T) == 2) return launch_wgmma<D>(a);
+      if constexpr (sizeof(T) == 2 && D <= 128) return launch_wgmma<D>(a);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -718,6 +720,7 @@ static int dispatch_d(int route, int d, const Args& a) {
     case 32: return launch_route<T, 32>(route, a);
     case 64: return launch_route<T, 64>(route, a);
     case 128: return launch_route<T, 128>(route, a);
+    case 256: return launch_route<T, 256>(route, a);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -728,8 +731,8 @@ static int dispatch_d(int route, int d, const Args& a) {
 // host, (batch, head, row) of q, k, v and out in that order; every one a
 // multiple of 4 and every pointer 16-byte aligned (the CUDA-core routes
 // move 4 elements at a time). nq, nk >= 1. route: one of the ROUTE_*
-// values above; ROUTE_WGMMA takes bfloat16 only, with the q, k and v
-// strides multiples of 8 (16-byte rows). Returns cudaGetLastError() after
+// values above; ROUTE_WGMMA takes bfloat16 only, D <= 128, with the q, k
+// and v strides multiples of 8 (16-byte rows). Returns cudaGetLastError() after
 // the launch (0 on success), or cudaErrorInvalidValue for an unsupported
 // dtype, head width, size (ROUTE_SHORT: B * Nq below 2^31 and H at most
 // 128 / max(1, D / 32)), or route.

@@ -73,9 +73,18 @@
 // block still reads all 12 D^2 weights from L2 (1.57 MB x 128 blocks = 201
 // MB per launch).
 //
-// The float32 kernel exists to hold the block to its plain version without
-// bf16 rounding. It keeps a synchronous design: fp32 FMAs over one staged
-// k-tile at a time, 8 warps, a tile of 16, 32 or 64 rows.
+// The rows route is a second, synchronous kernel: fp32 FMAs on the CUDA
+// cores over one staged weight k-tile at a time, 8 warps, a tile of 16, 32
+// or 64 rows with X, LN(x) and the wide buffer [rows][4D + 8] in shared
+// memory, all in the stream type. In float32 it holds the block to its
+// plain version without bf16 rounding. In bfloat16 it serves streams wider
+// than the wgmma kernel's 256 (whose 64-row tile needs 314,048 bytes at
+// D = 384 against the 232,448 a block may use): 32 rows at D = 384 take
+// 157,696 bytes, and the stream fits up to D = 576. Its
+// rounding sites are the wgmma kernel's, its GELU the same fast form; it
+// is simple and slow (scalar GEMMs, every block reading every weight).
+// Head widths 16, 32, 48 and 64 on both routes (attend_query loads a head
+// as whole 16-byte vectors: 48 is 6 of bf16, 12 of float32).
 //
 // Numerics follow the Pallas kernel: LayerNorm with fp32 stats (clamped
 // one-pass variance, eps 1e-6, no affine) rounded to the stream type; each
@@ -94,7 +103,7 @@
 
 namespace cdm {
 
-constexpr int NTHREADS = 256;  // float32 kernel: 8 warps
+constexpr int NTHREADS = 256;  // the rows route: 8 warps
 constexpr int KT = 32;         // weight rows per staged k-tile
 constexpr int NC = 128;        // output columns per GEMM chunk
 constexpr int PAD = 8;         // row padding (elements): conflict-free rows
@@ -104,13 +113,46 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return x * (0.5f * (1.0f + tanhf(k * (x + 0.044715f * (x * x * x)))));
 }
 
-// ===================================================== float32 kernel
+// ============================================== the rows route (scalar)
+// tanh-GELU for a bf16 result. 0.5 (1 + tanh(u)) is sigmoid(2u), so
+// gelu(x) = x / (1 + exp(-2u)): one ex2.approx and one rcp.approx (~2
+// float32 ulps, 2^-15 of a bf16 ulp, gone in the rounding that follows)
+// where tanhf costs ~5x the instructions of the whole epilogue.
+__device__ __forceinline__ float gelu_tanh16(float x) {
+  const float k2 = 2.0f * 0.7978845608028654f;  // 2 sqrt(2 / pi)
+  return __fdividef(x, 1.0f + __expf(-k2 * (x + 0.044715f * (x * x * x))));
+}
+
+// the GELU each type evaluates between its two roundings (see the header)
+template <typename T> __device__ __forceinline__ float gelu_of(float x);
+template <> __device__ __forceinline__ float gelu_of<float>(float x) {
+  return gelu_tanh(x);
+}
+template <> __device__ __forceinline__ float gelu_of<bf16>(float x) {
+  return gelu_tanh16(x);
+}
+
+// four consecutive elements as floats (8 bytes of bf16, 16 of float32)
+__device__ __forceinline__ float4 load4f(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4f(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // Ws[KT][NC + PAD] = W[k0 : k0 + KT, n0 : n0 + NC], zero beyond column N
-__device__ __forceinline__ void stage_w(const float* W, int N, int k0, int n0,
-                                        float* Ws) {
-  constexpr int VPR = NC / 4;
+template <typename T>
+__device__ __forceinline__ void stage_w(const T* W, int N, int k0, int n0,
+                                        T* Ws) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VPR = NC / VEC;
   for (int v = threadIdx.x; v < KT * VPR; v += NTHREADS) {
-    const int r = v / VPR, c = (v % VPR) * 4;
+    const int r = v / VPR, c = (v % VPR) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (n0 + c < N)
       val = *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * N + n0 + c);
@@ -118,33 +160,34 @@ __device__ __forceinline__ void stage_w(const float* W, int N, int k0, int n0,
   }
 }
 
-struct EpiStore {  // dst = acc + bias
-  float* dst; int ld; const float* bias;
+template <typename T> struct EpiStore {  // dst = T(acc + bias)
+  T* dst; int ld; const T* bias;
   __device__ void operator()(int r, int c, float v) const {
-    dst[r * ld + c] = v + bias[c];
+    dst[r * ld + c] = from_f<T>(v + to_f(bias[c]));
   }
 };
 
-struct EpiGelu {  // dst = gelu(acc + bias)
-  float* dst; int ld; const float* bias;
+template <typename T> struct EpiGelu {  // dst = T(gelu(T(acc + bias)))
+  T* dst; int ld; const T* bias;
   __device__ void operator()(int r, int c, float v) const {
-    dst[r * ld + c] = gelu_tanh(v + bias[c]);
+    dst[r * ld + c] = from_f<T>(gelu_of<T>(round_to<T>(v + to_f(bias[c]))));
   }
 };
 
-struct EpiResidual {  // x += acc + bias
-  float* x; int ld; const float* bias;
+template <typename T> struct EpiResidual {  // x = T(x + T(acc + bias))
+  T* x; int ld; const T* bias;
   __device__ void operator()(int r, int c, float v) const {
-    x[r * ld + c] = x[r * ld + c] + (v + bias[c]);
+    x[r * ld + c] = from_f<T>(to_f(x[r * ld + c]) +
+                              round_to<T>(v + to_f(bias[c])));
   }
 };
 
-// out = A @ W through the epilogue, for the tile's MT rows. A: shared
-// [MT][lda]; W: global [K][N] row-major, K a multiple of KT, N of 4.
+// out = A @ W through the epilogue, for the tile's MT rows, fp32 FMAs. A:
+// shared [MT][lda]; W: global [K][N] row-major, K a multiple of KT, N of 8.
 // Ends with a barrier, so the next phase sees every result.
-template <int MT, class Epi>
-__device__ void tile_gemm(const float* A, int lda, const float* W, int K,
-                          int N, float* Ws, const Epi& epi) {
+template <int MT, typename T, class Epi>
+__device__ void tile_gemm(const T* A, int lda, const T* W, int K, int N,
+                          T* Ws, const Epi& epi) {
   constexpr int RM = MT / 8;  // rows per warp; each lane owns 4 columns
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int n0 = 0; n0 < N; n0 += NC) {
@@ -159,11 +202,10 @@ __device__ void tile_gemm(const float* A, int lda, const float* W, int K,
       __syncthreads();
 #pragma unroll 4
       for (int kk = 0; kk < KT; ++kk) {
-        const float4 b =
-            *reinterpret_cast<const float4*>(Ws + kk * (NC + PAD) + lane * 4);
+        const float4 b = load4f(Ws + kk * (NC + PAD) + lane * 4);
 #pragma unroll
         for (int r = 0; r < RM; ++r) {
-          const float a = A[(warp * RM + r) * lda + k0 + kk];
+          const float a = to_f(A[(warp * RM + r) * lda + k0 + kk]);
           acc[r][0] = fmaf(a, b.x, acc[r][0]);
           acc[r][1] = fmaf(a, b.y, acc[r][1]);
           acc[r][2] = fmaf(a, b.z, acc[r][2]);
@@ -207,55 +249,58 @@ __device__ __forceinline__ void row_stats(const T* row, int d, int lane,
   inv = 1.f / sqrtf(fmaxf(0.f, ss / d - mu * mu) + 1e-6f);
 }
 
-// Y[r] = LN(X[r]) for the tile's MT rows, no affine. One warp per row.
-template <int MT>
-__device__ void layer_norm(const float* X, int ldx, float* Y, int ldy, int d) {
+// Y[r] = T(LN(X[r])) for the tile's MT rows, no affine. One warp per row.
+template <int MT, typename T>
+__device__ void layer_norm(const T* X, int ldx, T* Y, int ldy, int d) {
+  constexpr int VEC = 16 / sizeof(T);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < MT; r += NTHREADS / 32) {
     float mu, inv;
     row_stats(X + r * ldx, d, lane, mu, inv);
-    for (int c = lane * 4; c < d; c += 32 * 4) {
-      float v[4];
-      load_f<float, 4>(X + r * ldx + c, v);
+    for (int c = lane * VEC; c < d; c += 32 * VEC) {
+      float v[VEC];
+      load_f<T, VEC>(X + r * ldx + c, v);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = (v[e] - mu) * inv;
-      store_f<float, 4>(Y + r * ldy + c, v);
+      for (int e = 0; e < VEC; ++e) v[e] = (v[e] - mu) * inv;
+      store_f<T, VEC>(Y + r * ldy + c, v);
     }
   }
   __syncthreads();
 }
 
-// Shared memory of one float32 block, in bytes: X and A [MT][D + PAD], the
-// wide buffer [MT][4D + PAD], the weight k-tile [KT][NC + PAD].
-__host__ __device__ constexpr size_t smem_bytes_f32(int mt, int d) {
-  return sizeof(float) * ((size_t)mt * (d + PAD) * 2 +
-                          (size_t)mt * (4 * d + PAD) + (size_t)KT * (NC + PAD));
+// Shared memory of one rows-route block, in bytes: X and A [MT][D + PAD],
+// the wide buffer [MT][4D + PAD], the weight k-tile [KT][NC + PAD], all of
+// the stream type.
+__host__ __device__ constexpr size_t smem_bytes_rows(int mt, int d,
+                                                     int elem) {
+  return (size_t)elem * ((size_t)mt * (d + PAD) * 2 +
+                         (size_t)mt * (4 * d + PAD) + (size_t)KT * (NC + PAD));
 }
 
-template <int MT, int HD>
+template <typename T, int MT, int HD>
 __global__ void __launch_bounds__(NTHREADS)
-fused_dit_block_f32_kernel(const float* tok, const float* wqkv,
-                           const float* bqkv, const float* wpr,
-                           const float* bpr, const float* w1, const float* b1,
-                           const float* w2, const float* b2, float* out,
-                           int n_img, int n_tok, int d, int imgs_per_tile,
-                           float scale) {
+fused_dit_block_rows_kernel(const T* tok, const T* wqkv, const T* bqkv,
+                            const T* wpr, const T* bpr, const T* w1,
+                            const T* b1, const T* w2, const T* b2, T* out,
+                            int n_img, int n_tok, int d, int imgs_per_tile,
+                            float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int VEC = 16 / sizeof(T);
   const int ldx = d + PAD, ldq = 4 * d + PAD;
-  float* X = reinterpret_cast<float*>(smem_raw);
-  float* A = X + MT * ldx;
-  float* Q = A + MT * ldx;
-  float* Ws = Q + MT * ldq;
+  T* X = reinterpret_cast<T*>(smem_raw);
+  T* A = X + MT * ldx;
+  T* Q = A + MT * ldx;
+  T* Ws = Q + MT * ldq;
   const int n_heads = d / HD;
   const int img0 = blockIdx.x * imgs_per_tile;
   const int imgs = min(imgs_per_tile, n_img - img0);
   const int rows = imgs * n_tok;
   const size_t g0 = (size_t)img0 * n_tok * d;
-  const int vpr = d / 4;
+  const int vpr = d / VEC;
 
   // residual tile in; rows past the tile's images are zero
   for (int v = threadIdx.x; v < MT * vpr; v += NTHREADS) {
-    const int r = v / vpr, c = (v % vpr) * 4;
+    const int r = v / vpr, c = (v % vpr) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows)
       val = *reinterpret_cast<const uint4*>(tok + g0 + (size_t)r * d + c);
@@ -265,23 +310,22 @@ fused_dit_block_f32_kernel(const float* tok, const float* wqkv,
 
   // attention half: qkv into Q[:, 0:3D], attention output over Q[:, 0:D]
   layer_norm<MT>(X, ldx, A, ldx, d);
-  tile_gemm<MT>(A, ldx, wqkv, d, 3 * d, Ws, EpiStore{Q, ldq, bqkv});
+  tile_gemm<MT>(A, ldx, wqkv, d, 3 * d, Ws, EpiStore<T>{Q, ldq, bqkv});
   for (int p = threadIdx.x; p < imgs * n_heads * n_tok; p += NTHREADS) {
     const int im = p / (n_heads * n_tok), rem = p % (n_heads * n_tok);
-    const RowMajor<float> img{Q + im * n_tok * ldq, ldq};
-    attend_query<float, HD>(img, img, rem % n_tok, rem / n_tok, n_tok, d,
-                            scale);
+    const RowMajor<T> img{Q + im * n_tok * ldq, ldq};
+    attend_query<T, HD>(img, img, rem % n_tok, rem / n_tok, n_tok, d, scale);
   }
   __syncthreads();
-  tile_gemm<MT>(Q, ldq, wpr, d, d, Ws, EpiResidual{X, ldx, bpr});
+  tile_gemm<MT>(Q, ldq, wpr, d, d, Ws, EpiResidual<T>{X, ldx, bpr});
 
   // MLP half: GELU hidden into Q[:, 0:4D]
   layer_norm<MT>(X, ldx, A, ldx, d);
-  tile_gemm<MT>(A, ldx, w1, d, 4 * d, Ws, EpiGelu{Q, ldq, b1});
-  tile_gemm<MT>(Q, ldq, w2, 4 * d, d, Ws, EpiResidual{X, ldx, b2});
+  tile_gemm<MT>(A, ldx, w1, d, 4 * d, Ws, EpiGelu<T>{Q, ldq, b1});
+  tile_gemm<MT>(Q, ldq, w2, 4 * d, d, Ws, EpiResidual<T>{X, ldx, b2});
 
   for (int v = threadIdx.x; v < rows * vpr; v += NTHREADS) {
-    const int r = v / vpr, c = (v % vpr) * 4;
+    const int r = v / vpr, c = (v % vpr) * VEC;
     *reinterpret_cast<uint4*>(out + g0 + (size_t)r * d + c) =
         *reinterpret_cast<const uint4*>(X + r * ldx + c);
   }
@@ -408,16 +452,6 @@ struct EpiStore16 {  // Q = bf16(acc + bias)
         __floats2bfloat162_rn(v0, v1);
   }
 };
-
-// tanh-GELU of a bf16 value for a bf16 result. 0.5 (1 + tanh(u)) is
-// sigmoid(2u), so gelu(x) = x / (1 + exp(-2u)): one ex2.approx and one
-// rcp.approx (~2 float32 ulps, 2^-15 of a bf16 ulp, gone in the rounding
-// that follows) where tanhf costs ~5x the instructions of the whole
-// epilogue.
-__device__ __forceinline__ float gelu_tanh16(float x) {
-  const float k2 = 2.0f * 0.7978845608028654f;  // 2 sqrt(2 / pi)
-  return __fdividef(x, 1.0f + __expf(-k2 * (x + 0.044715f * (x * x * x))));
-}
 
 struct EpiGelu16 {  // Q = bf16(gelu(bf16(acc + bias)))
   unsigned char* q;
@@ -754,42 +788,51 @@ static int launch(Kernel kern, int threads, size_t smem, int mt,
   return (int)cudaGetLastError();
 }
 
-template <int MT>
-static int launch_f32(int hd, const Args& a) {
-  const size_t smem = smem_bytes_f32(MT, a.d);
+template <typename T, int MT, int HD>
+static int launch_rows_hd(const Args& a) {
+  return launch<T>(fused_dit_block_rows_kernel<T, MT, HD>, NTHREADS,
+                   smem_bytes_rows(MT, a.d, sizeof(T)), MT, a);
+}
+
+template <typename T, int MT>
+static int launch_rows(int hd, const Args& a) {
   switch (hd) {
-    case 16:
-      return launch<float>(fused_dit_block_f32_kernel<MT, 16>, NTHREADS, smem,
-                           MT, a);
-    case 32:
-      return launch<float>(fused_dit_block_f32_kernel<MT, 32>, NTHREADS, smem,
-                           MT, a);
+    case 16: return launch_rows_hd<T, MT, 16>(a);
+    case 32: return launch_rows_hd<T, MT, 32>(a);
+    case 48: return launch_rows_hd<T, MT, 48>(a);
+    case 64: return launch_rows_hd<T, MT, 64>(a);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+template <int HD>
+static int launch_bf16_hd(const Args& a) {
+  return launch<bf16>(fused_dit_block_bf16_kernel<HD>, THREADS16,
+                      smem_bytes_bf16(a.d), MT16, a);
+}
+
 static int launch_bf16(int hd, const Args& a) {
-  const size_t smem = smem_bytes_bf16(a.d);
+  if (a.d > MAX_D) return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 16:
-      return launch<bf16>(fused_dit_block_bf16_kernel<16>, THREADS16, smem,
-                          MT16, a);
-    case 32:
-      return launch<bf16>(fused_dit_block_bf16_kernel<32>, THREADS16, smem,
-                          MT16, a);
+    case 16: return launch_bf16_hd<16>(a);
+    case 32: return launch_bf16_hd<32>(a);
+    case 48: return launch_bf16_hd<48>(a);
+    case 64: return launch_bf16_hd<64>(a);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace cdm
 
-// dtype: 0 = float32, 1 = bfloat16. mt: token rows per block (64 for
-// bfloat16; 16, 32 or 64 for float32), chosen by the caller so that the
-// block's shared memory fits (ops/kernels.py mirrors smem_bytes_f32 and
-// smem_bytes_bf16); a size that does not fit fails in
-// cudaFuncSetAttribute and is returned. Returns cudaGetLastError() after
-// the launch (0 on success), or cudaErrorInvalidValue for an unsupported
-// combination.
+// dtype: 0 = float32, 1 = bfloat16. mt: token rows per block, which also
+// names the route: 64 in bfloat16 is the wgmma kernel (D <= 256); 16, 32 or
+// 64 in float32 and 32 in bfloat16 the rows route (fp32 FMAs over staged
+// k-tiles; the bfloat16 stream wider than 256). The caller chooses
+// it so that the block's shared memory fits (ops/kernels.py mirrors
+// smem_bytes_rows and smem_bytes_bf16); a size that does not fit fails in
+// cudaFuncSetAttribute and is returned. hd: 16, 32, 48 or 64. Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for an unsupported combination.
 extern "C" int fused_dit_block_launch(
     int dtype, const void* tok, const void* wqkv, const void* bqkv,
     const void* wpr, const void* bpr, const void* w1, const void* b1,
@@ -797,11 +840,12 @@ extern "C" int fused_dit_block_launch(
     int hd, int mt, float scale, void* stream) {
   const cdm::Args a{{tok, wqkv, bqkv, wpr, bpr, w1, b1, w2, b2}, out, n_img,
                     n_tok, d, scale, static_cast<cudaStream_t>(stream)};
-  if (n_tok < 1 || n_tok > mt || d % cdm::KT != 0)
+  if (n_tok < 1 || n_tok > mt || d % cdm::KT != 0 || d % hd != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && mt == 64) return cdm::launch_bf16(hd, a);
-  if (dtype == 0 && mt == 64) return cdm::launch_f32<64>(hd, a);
-  if (dtype == 0 && mt == 32) return cdm::launch_f32<32>(hd, a);
-  if (dtype == 0 && mt == 16) return cdm::launch_f32<16>(hd, a);
+  if (dtype == 1 && mt == 32) return cdm::launch_rows<cdm::bf16, 32>(hd, a);
+  if (dtype == 0 && mt == 64) return cdm::launch_rows<float, 64>(hd, a);
+  if (dtype == 0 && mt == 32) return cdm::launch_rows<float, 32>(hd, a);
+  if (dtype == 0 && mt == 16) return cdm::launch_rows<float, 16>(hd, a);
   return (int)cudaErrorInvalidValue;
 }

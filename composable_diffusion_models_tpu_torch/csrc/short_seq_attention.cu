@@ -16,6 +16,7 @@
 // threads are exactly one image's (head, query) pairs, so every row comes
 // from DRAM once and the repeats hit L1.
 // No shared memory, no tensor cores: the work is a few FMAs per byte.
+// Head widths 8, 16, 32, 48 and 64 (a head is whole 16-byte vectors).
 #include "attention.cuh"
 
 namespace cdm {
@@ -55,6 +56,7 @@ static int dispatch_hd(int hd, const void* qkv, void* out, int n_img,
     case 8: return launch<T, 8>(qkv, out, n_img, n_tok, n_heads, scale, s);
     case 16: return launch<T, 16>(qkv, out, n_img, n_tok, n_heads, scale, s);
     case 32: return launch<T, 32>(qkv, out, n_img, n_tok, n_heads, scale, s);
+    case 48: return launch<T, 48>(qkv, out, n_img, n_tok, n_heads, scale, s);
     case 64: return launch<T, 64>(qkv, out, n_img, n_tok, n_heads, scale, s);
   }
   return (int)cudaErrorInvalidValue;

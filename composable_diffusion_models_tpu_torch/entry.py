@@ -708,8 +708,10 @@ def quality_gate(train_steps: int = 12000, batch_size: int = 256,
 
     ``sanity`` cuts every size as the script's ``--sanity`` does. Returns
     the report (the script's JSON) and, with ``out``, writes it there as
-    ``quality_dit_p14_d256_l4[_s<train_steps>].json``. The script also
-    saves image grids; the port does not."""
+    ``quality_dit_p14_d256_l4[_s<train_steps>].json``, beside the script's
+    grids of the first pass (``dit_p14_d256_l4_solo<i>.png``,
+    ``dit_p14_d256_l4_composed.png``). :func:`quality_gate_flagship` gates
+    any named configuration."""
     dev = resolve_device(device)
     if sanity:
         train_steps, probe_steps = 40, 40
@@ -727,23 +729,15 @@ def quality_gate(train_steps: int = 12000, batch_size: int = 256,
         experts, _ = train_experts(train_steps, batch_size, lr, ema, seed,
                                    data_n, dev)
     params_list = load_experts(experts, dev, GATE_DIT.dtype)
-
-    def score(n: int, seed_salt: int) -> dict:
-        res = {"solo": {}, "composed": None}
-        for i, p in enumerate(params_list):
-            x = Draws(fold_in(seed, seed_salt + 30 + i), dev).normal(
-                (n, 28, 28, 1))
-            res["solo"][f"expert_{i}"] = gate.probe_stats(
-                probe, probe_params, sample([p], x, n_steps, device=dev),
-                gate.SUBSETS[i], real_feats)
-        x = Draws(fold_in(seed, seed_salt + 40), dev).normal((n, 28, 28, 1))
-        allowed = tuple(sorted(c for s in gate.SUBSETS for c in s))
-        res["composed"] = gate.probe_stats(
-            probe, probe_params, sample(params_list, x, n_steps, device=dev),
-            allowed, real_feats)
-        return res
-
     cfg = "dit_p14_d256_l4"
+
+    def run(idx: Sequence[int], x: torch.Tensor) -> torch.Tensor:
+        return sample([params_list[i] for i in idx], x, n_steps, device=dev)
+
+    def score(n: int, seed_salt: int, save_png: bool = True) -> dict:
+        return _gate_score(run, n, seed, seed_salt, probe, probe_params,
+                           real_feats, dev, cfg, out if save_png else None)
+
     report = {"config": cfg, "train_steps": train_steps,
               "batch_size": batch_size, "ema": ema, "n_steps": n_steps,
               "n_samples": n_samples,
@@ -751,32 +745,230 @@ def quality_gate(train_steps: int = 12000, batch_size: int = 256,
               "probe_heldin": heldin}
     report.update(score(n_samples, 0))
     if baseline is not None:
-        with open(baseline) as f:
-            base = json.load(f)
-        if "diversity_mean" not in (base.get("composed") or {}):
-            raise ValueError(f"baseline {baseline} lacks the distributional "
-                             "statistics (diversity, fid)")
-        verdict = gate.judge(report, base, tol, div_frac, fid_slack,
-                             n_samples=n_samples)
-        if verdict.get("near_boundary") and not sanity:
-            n_esc = 4 * n_samples
-            first_pass = {"n_samples": n_samples, "solo": report["solo"],
-                          "composed": report["composed"], **verdict}
-            report.update(score(n_esc, 1000))
-            report["n_samples"] = n_esc
-            report["escalation"] = {"first_pass": first_pass,
-                                    "escalated_n": n_esc,
-                                    "second_seed_salt": 1000}
-            verdict = gate.judge(report, base, tol, div_frac, fid_slack,
-                                 n_samples=n_esc)
-        report.update(verdict)
+        base = _read_baseline(baseline)
+        report.update(_judge_gate(report, base, score, n_samples, tol,
+                                  div_frac, fid_slack, escalate=not sanity))
         report["baseline_config"] = base.get("config", str(baseline))
     if out is not None:
-        os.makedirs(out, exist_ok=True)
-        suffix = "" if train_steps == 12000 else f"_s{train_steps}"
-        with open(os.path.join(out, f"quality_{cfg}{suffix}.json"), "w") as f:
-            json.dump(report, f, indent=2)
+        _write_report(out, f"quality_{cfg}", train_steps, report)
     return report
+
+
+@torch.inference_mode()
+def _gate_score(run, n: int, seed: int, seed_salt: int, probe, probe_params,
+                real_feats, dev: torch.device, cfg: str,
+                out: Optional[str]) -> dict:
+    """The flagship gates' scoring pass (the script's ``score``): each of
+    the three experts sampled solo from N(0, 1) noise drawn with
+    fold_in(seed, seed_salt + 30 + i), the three composed from
+    fold_in(seed, seed_salt + 40), ``n`` images of 28 x 28 x 1 each,
+    through ``run(expert indices, x)``; the probe's statistics of each set
+    (``gate.probe_stats``). With ``out``, the first 64 samples of each set
+    as the script's grids ``<cfg>_solo<i>.png`` and ``<cfg>_composed.png``
+    there."""
+    res = {"solo": {}, "composed": None}
+    sets = [((i,), gate.SUBSETS[i], seed_salt + 30 + i, f"solo{i}")
+            for i in range(len(gate.SUBSETS))]
+    sets.append((tuple(range(len(gate.SUBSETS))),
+                 tuple(sorted(c for s in gate.SUBSETS for c in s)),
+                 seed_salt + 40, "composed"))
+    for idx, allowed, salt, tag in sets:
+        x = Draws(fold_in(seed, salt), dev).normal((n, 28, 28, 1))
+        samples = run(idx, x)
+        stats = gate.probe_stats(probe, probe_params, samples, allowed,
+                                 real_feats)
+        if len(idx) == 1:
+            res["solo"][f"expert_{idx[0]}"] = stats
+        else:
+            res["composed"] = stats
+        if out is not None:
+            viz.save_grid(samples[:64], os.path.join(out, f"{cfg}_{tag}.png"),
+                          nrow=8)
+    return res
+
+
+def _read_baseline(path) -> dict:
+    """A baseline report read from ``path``; it must carry the
+    distributional statistics (diversity, FID-lite)."""
+    with open(path) as f:
+        base = json.load(f)
+    if "diversity_mean" not in (base.get("composed") or {}):
+        raise ValueError(f"baseline {path} lacks the distributional "
+                         "statistics (diversity, fid)")
+    return base
+
+
+def _judge_gate(report: dict, base: dict, score, n_samples: int, tol: float,
+                div_frac: float, fid_slack: float, escalate: bool,
+                criteria=gate.GATE_CRITERIA,
+                scored: Tuple[str, ...] = ("solo", "composed")) -> dict:
+    """``gate.judge`` of ``report`` against ``base`` under ``criteria``. A
+    verdict decided within sampling noise of a threshold is scored again
+    by ``score(4 n_samples, 1000, save_png=False)`` (with ``escalate``),
+    which replaces the ``scored`` keys of the report, and judged on that;
+    the first pass lands under ``escalation``. Returns the verdict, which
+    the caller adds to the report."""
+    verdict = gate.judge(report, base, tol, div_frac, fid_slack,
+                         criteria=criteria, n_samples=n_samples)
+    if verdict.get("near_boundary") and escalate:
+        n_esc = 4 * n_samples
+        first_pass = {"n_samples": n_samples,
+                      **{k: report[k] for k in scored}, **verdict}
+        report.update(score(n_esc, 1000, save_png=False))
+        report["n_samples"] = n_esc
+        report["escalation"] = {"first_pass": first_pass,
+                                "escalated_n": n_esc,
+                                "second_seed_salt": 1000}
+        verdict = gate.judge(report, base, tol, div_frac, fid_slack,
+                             criteria=criteria, n_samples=n_esc)
+    return verdict
+
+
+def _write_report(out: str, stem: str, train_steps: int,
+                  report: dict) -> str:
+    """``report`` as ``<out>/<stem>[_s<train_steps>].json`` (no suffix at
+    the scripts' 12000 steps)."""
+    os.makedirs(out, exist_ok=True)
+    suffix = "" if train_steps == 12000 else f"_s{train_steps}"
+    path = os.path.join(out, f"{stem}{suffix}.json")
+    with open(path, "w") as f:
+        json.dump(report, f, indent=2)
+    return path
+
+
+FLAGSHIP_GATE_CONFIGS = ("unet64", "unet32")
+
+
+def quality_gate_flagship(configs: Union[str, Sequence[str]] =
+                          FLAGSHIP_GATE_CONFIGS, train_steps: int = 12000,
+                          batch_size: int = 256, lr: float = 2e-4,
+                          ema: float = 0.999, probe_steps: int = 2000,
+                          n_samples: int = 256, n_steps: int = 50,
+                          data_n: int = 8192, seed: int = 0,
+                          baseline: Optional[str] = None, tol: float = 0.02,
+                          div_frac: float = 0.5, fid_slack: float = 1.5,
+                          sanity: bool = False,
+                          out: Optional[str] = "outputs/quality_gate",
+                          experts: Optional[dict] = None,
+                          dtype: torch.dtype = torch.bfloat16,
+                          device=None) -> dict:
+    """The protocol of ``scripts/quality_gate_flagship.py`` for any named
+    configurations (``gate.build_model``), on the device (``None``: the
+    CUDA card). Returns {config: report}.
+
+    1. The 10-class digit probe and its real-image features, as
+       :func:`quality_gate` makes them (keys fold_in(seed, 1) and 2), and
+       the three digit subsets ``gate.SUBSETS`` of ``data_n`` procedural
+       digits each (key fold_in(seed, 3 + i)): one probe and one set of
+       data for all configurations.
+    2. Per configuration, three experts: the initial tree drawn with
+       fold_in(seed, 10 + i), trained ``train_steps`` with fold_in(seed,
+       20 + i) through the model's training forward (bf16 compute over
+       float32 parameters, eps-prediction on ``VPSchedule()``, Adam at
+       ``lr``, EMA ``ema``; 0: off); ``experts``: {config: EMA trees}
+       already trained for this seed, to skip the training. The trees are
+       cast to bf16.
+    3. Each expert sampled solo and the three composed (unit weights,
+       ``compose.weighted``), ``n_samples`` each, ``n_steps`` of DDIM
+       through the configuration's served program (``fused_dit_block`` or
+       ``groupnorm_silu``), scored by ``gate.probe_stats``.
+    4. With ``baseline`` (the path of a report .json, or a name among
+       ``configs``, judged in this run and labelled "BASELINE"; None:
+       report only) the verdict of ``gate.judge``; a candidate decided
+       within sampling noise of a threshold is scored again with 4x the
+       samples and seed salt 1000 (not under ``sanity``).
+
+    ``dtype``: the experts' compute type in training and sampling (the
+    script's bf16; float32 holds the port to the JAX package in tests).
+    ``sanity`` cuts every size as the script's ``--sanity`` does. With
+    ``out``, each report is written there as
+    ``quality_<config>[_s<train_steps>].json`` and its grids as
+    ``<config>_solo<i>.png`` and ``<config>_composed.png``. A FAIL raises
+    nothing: the caller reads the verdicts (the script's exit code is a
+    command line's business)."""
+    dev = resolve_device(device)
+    configs = tuple(configs.split(",") if isinstance(configs, str)
+                    else configs)
+    models = {cfg: gate.build_model(cfg, dtype) for cfg in configs}
+    if not (baseline is None or str(baseline).endswith(".json")
+            or baseline in configs):
+        raise ValueError(f"baseline {baseline!r} is neither a .json path "
+                         f"nor one of {configs}")
+    if sanity:
+        train_steps, probe_steps = 40, 40
+        n_samples, n_steps, data_n = 16, 4, 256
+        batch_size = 16
+    full_imgs, full_labels = data.get_mnist(fold_in(seed, 1), n=data_n,
+                                            device=dev)
+    probe, probe_params = ceval.train_probe(
+        fold_in(seed, 2), full_imgs, (full_labels,), num_classes=(10,),
+        steps=probe_steps, noise_aug=0.1)
+    heldin = ceval.probe_accuracy(probe, probe_params, full_imgs[:512],
+                                  (full_labels[:512],))
+    real_feats = ceval.probe_features(probe, probe_params, full_imgs[:2048])
+    subset_data = [data.get_mnist(fold_in(seed, 3 + i), n=data_n,
+                                  classes=s, device=dev)[0]
+                   for i, s in enumerate(gate.SUBSETS)]
+
+    reports, scorers = {}, {}
+    for cfg, (model, serve_fn) in models.items():
+        is_unet = isinstance(model, UNet)
+        trees = (experts or {}).get(cfg)
+        if trees is None:
+            trees = []
+            for i, imgs in enumerate(subset_data):
+                p0 = flax_init(model, fold_in(seed, 10 + i), dev)
+                if is_unet:
+                    p0 = unet_torch_layout(p0)
+                p, _ = train.train_expert(
+                    fold_in(seed, 20 + i), model.apply, p0, VPSchedule(),
+                    imgs, steps=train_steps, batch_size=batch_size, lr=lr,
+                    ema_decay=ema or None)
+                trees.append(p)
+        params = (load_unets if is_unet else load_experts)(trees, dev, dtype)
+
+        def run(idx, x, serve_fn=serve_fn, params=params):
+            stack = ExpertStack(serve_fn, [params[i] for i in idx])
+            w = torch.ones((stack.k,), dtype=torch.float32, device=dev)
+
+            def eps_fn(x_: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+                if stack.k == 1:  # the script's solo eps: no blend
+                    return serve_fn(stack.params_list[0], x_.to(dtype),
+                                    t.to(dtype)).float()
+                return weighted(stack(x_.to(dtype), t.to(dtype)).float(), w)
+            return ddim(eps_fn, VPSchedule(), x, n_steps)
+
+        def score(n: int, seed_salt: int, save_png: bool = True,
+                  run=run, cfg=cfg) -> dict:
+            return _gate_score(run, n, seed, seed_salt, probe, probe_params,
+                               real_feats, dev, cfg,
+                               out if save_png else None)
+
+        report = {"config": cfg, "train_steps": train_steps,
+                  "batch_size": batch_size, "ema": ema, "n_steps": n_steps,
+                  "n_samples": n_samples,
+                  "subsets": [list(s) for s in gate.SUBSETS],
+                  "probe_heldin": heldin, "solo": {}, "composed": None}
+        report.update(score(n_samples, 0))
+        reports[cfg], scorers[cfg] = report, score
+
+    base = None
+    if baseline is not None:
+        base = (_read_baseline(baseline) if str(baseline).endswith(".json")
+                else reports[baseline])
+    for cfg, report in reports.items():
+        if base is not None:
+            is_base = report is base
+            verdict = _judge_gate(report, base, scorers[cfg],
+                                  report["n_samples"], tol, div_frac,
+                                  fid_slack, escalate=not (is_base or sanity))
+            if is_base:
+                verdict["verdict"] = "BASELINE"
+            report.update(verdict)
+            report["baseline_config"] = base.get("config", str(baseline))
+        if out is not None:
+            _write_report(out, f"quality_{cfg}", train_steps, report)
+    return reports
 
 
 # ------------------------------------------------------------ shapes gate
@@ -908,8 +1100,9 @@ def quality_gate_shapes(configs: Union[str, Sequence[str]] =
 
     ``sanity`` cuts every size as the script's ``--sanity`` does. With
     ``out``, each report is written there as
-    ``quality_shapes_<config>[_s<train_steps>].json``. The script also saves
-    image grids; the port does not."""
+    ``quality_shapes_<config>[_s<train_steps>].json``, beside the script's
+    grid of the first pass, ``<config>_cells.png`` (the first 4 clipped
+    samples of each cell, 12 a row)."""
     dev = resolve_device(device)
     configs = tuple(configs.split(",") if isinstance(configs, str)
                     else configs)
@@ -938,10 +1131,11 @@ def quality_gate_shapes(configs: Union[str, Sequence[str]] =
         params = (load_unets(trees, dev) if is_unet
                   else load_experts(trees, dev))
 
-        def score(bs: int, seed_salt: int, params=params, is_unet=is_unet,
-                  serve_model=serve_model) -> dict:
+        def score(bs: int, seed_salt: int, save_png: bool = True,
+                  params=params, is_unet=is_unet, serve_model=serve_model,
+                  cfg=cfg) -> dict:
             res = {"cells": {}, "composed": None}
-            joint, divs, feats_all = [], [], []
+            joint, divs, feats_all, grids = [], [], [], []
             for s_ in range(3):
                 for c in range(3):
                     x = Draws(fold_in(seed, seed_salt + 40 + 3 * s_ + c),
@@ -955,6 +1149,7 @@ def quality_gate_shapes(configs: Union[str, Sequence[str]] =
                         samples = sample(params, x, n_steps, device=dev,
                                          labels=(labs,), model=serve_model)
                     samples = samples.clamp(-1.0, 1.0)
+                    grids.append(samples[:4])
                     scores = ceval.compositional_scores(
                         probe, probe_params, samples, (s_, c))
                     feats = ceval.probe_features(probe, probe_params, samples)
@@ -970,6 +1165,9 @@ def quality_gate_shapes(configs: Union[str, Sequence[str]] =
                 "fid_probe": round(ceval.frechet_probe_distance(
                     torch.cat(feats_all), real_feats), 4),
             }
+            if save_png and out is not None:
+                viz.save_grid(torch.cat(grids),
+                              os.path.join(out, f"{cfg}_cells.png"), nrow=12)
             return res
 
         report = {"config": cfg, "workload": SHAPES_WORKLOAD,
@@ -982,35 +1180,17 @@ def quality_gate_shapes(configs: Union[str, Sequence[str]] =
 
     base = shapes_baseline(baseline, reports)
     for cfg, report in reports.items():
-        verdict = gate.judge(report, base, tol, div_frac, fid_slack,
-                             criteria=gate.SHAPES_CRITERIA,
-                             n_samples=samples_per_cell)
-        if verdict.get("near_boundary") and report is not base \
-                and not sanity:
-            n_esc = 4 * samples_per_cell
-            first_pass = {"n_samples": samples_per_cell,
-                          "cells": report["cells"],
-                          "composed": report["composed"], **verdict}
-            esc = scorers[cfg](n_esc, 1000)
-            report["cells"], report["composed"] = (esc["cells"],
-                                                   esc["composed"])
-            report["n_samples"] = n_esc
-            report["escalation"] = {"first_pass": first_pass,
-                                    "escalated_n": n_esc,
-                                    "second_seed_salt": 1000}
-            verdict = gate.judge(report, base, tol, div_frac, fid_slack,
-                                 criteria=gate.SHAPES_CRITERIA,
-                                 n_samples=n_esc)
+        verdict = _judge_gate(report, base, scorers[cfg], samples_per_cell,
+                              tol, div_frac, fid_slack,
+                              escalate=not (report is base or sanity),
+                              criteria=gate.SHAPES_CRITERIA,
+                              scored=("cells", "composed"))
         if report is base:
             verdict["verdict"] = "BASELINE"
         report.update(verdict)
         report["baseline_config"] = base.get("config", baseline)
         if out is not None:
-            os.makedirs(out, exist_ok=True)
-            suffix = "" if train_steps == 12000 else f"_s{train_steps}"
-            with open(os.path.join(out, f"quality_shapes_{cfg}{suffix}.json"),
-                      "w") as f:
-                json.dump(report, f, indent=2)
+            _write_report(out, f"quality_shapes_{cfg}", train_steps, report)
     return reports
 
 
@@ -1349,6 +1529,74 @@ def compose_scores(preset: str = "mnist_image",
 
 # the latent expert of the VAE path: z, the time embedding and one digit
 # slot with the null token (10)
+@torch.inference_mode()
+def compose_cfg(preset: str = "colored_mnist_guided", name: str = "guided",
+                digit: int = 3, color: int = 6,
+                guidance: Sequence[float] = (2.0, 2.0),
+                sampler: str = "ddim", out: str = "outputs", seed: int = 42,
+                overrides: Sequence[str] = (), fused_gn: bool = True,
+                flash_attn: bool = True, x_init=None,
+                noise: Optional[torch.Tensor] = None,
+                device=None) -> torch.Tensor:
+    """Classifier-free-guidance composition of (digit, color) with one
+    trained dual-conditioned expert of a preset (the checkpoint
+    :func:`train_image` saved as ``name``): the path of
+    ``scripts/compose_cfg.py``. Returns the float32 (B, H, W, C) samples at
+    the config's ``sample.batch_size`` and writes their grid to
+    ``results/cfg_d<digit>_c<color>.png``.
+
+    The two single-condition slots (digit with the null color, the null
+    digit with color) and the uncond slot (both null tokens, the class
+    counts) run as one forward of 3B rows, weighed by ``guidance``
+    (``samplers.make_cfg_eps_fn``). A ``vp`` preset samples by ``sampler``:
+    "ddim" or "em" (Euler-Maruyama), ``sample.n_steps`` steps; a ``ddpm``
+    preset by ancestral DDPM over its ``schedule.num_timesteps``, the
+    expert taking the integer timestep as a float. Draws: the initial noise
+    from ``rng.Draws(seed)`` (``x_init`` in its place), E-M's and the
+    ancestral sampler's from a generator seeded with ``seed`` (``noise``:
+    the (n_steps or T, B, H, W, C) draws in its place).
+
+    ``fused_gn=True`` runs the UNet's GroupNorm + SiLU through the
+    ``groupnorm_silu`` kernel; ``flash_attn=True`` its cross-attention,
+    where the preset has one (``ito_cross_attention``), through
+    ``flash_attention``. ``device=None`` is the CUDA card."""
+    dev = resolve_device(device)
+    if sampler not in ("ddim", "em"):
+        raise ValueError(f"sampler must be 'ddim' or 'em', got {sampler!r}")
+    cfg = get_config(preset, overrides)
+    schedule = build_schedule(cfg)
+    model = build_model(cfg, fused_gn=fused_gn,
+                        flash_attn=flash_attn and cfg.model.cross_attn)
+    params, = load_named(preset, [name], out, overrides, dev)
+    n1, n2 = cfg.model.num_classes  # the null token is the vocabulary size
+    eps_fn = make_cfg_eps_fn(
+        lambda x, t, *labs: model.apply(params, x, t, *labs),
+        [(digit, n2), (n1, color)], (n1, n2),
+        torch.tensor(list(guidance), dtype=torch.float32, device=dev))
+    size, ch = cfg.data.img_size, cfg.model.in_channels
+    shape = (cfg.sample.batch_size, size, size, ch)
+    x = (Draws(seed, dev).normal(shape) if x_init is None
+         else torch.as_tensor(x_init, dtype=torch.float32).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = None if noise is None else noise.to(dev)
+    if cfg.schedule.family == "vp":
+        if sampler == "em":
+            out_x = samplers.euler_maruyama(eps_fn, schedule, gen, x,
+                                            cfg.sample.n_steps, noise=noise)
+        else:
+            out_x = ddim(eps_fn, schedule, x, cfg.sample.n_steps)
+    else:
+        t_col = torch.arange(schedule.num_timesteps, dtype=torch.float32,
+                             device=dev)
+        out_x = samplers.ddpm_ancestral(
+            lambda x_, ti: eps_fn(x_, t_col[ti]), schedule, gen, x,
+            noise=noise)
+    mgr = CheckpointManager(out, cfg.name)
+    viz.save_grid(out_x, os.path.join(mgr.results_dir,
+                                      f"cfg_d{digit}_c{color}.png"))
+    return out_x
+
+
 VAE_LATENT_T = 300
 
 
@@ -1720,3 +1968,132 @@ def compose_images_ito(preset: str = "shapes_ddim",
     viz.save_grid(samples, path, nrow=3 * bs)
     print(f"Ito-kappa composition grid saved to {path}")
     return samples
+
+
+# ------------------------------------------------------------ CIFAR split
+CIFAR_SPLITS = (tuple(range(5)), tuple(range(5, 10)))
+
+
+def _cifar_stats(probe, probe_params, samples: torch.Tensor) -> dict:
+    """The script's ``probe_stats``: the 10-class histogram, the share on
+    the first split (classes 0-4) and the mean top probability."""
+    with torch.no_grad():
+        probs = torch.softmax(probe.apply(probe_params, samples)[0], dim=-1)
+    maxp, preds = probs.max(dim=-1)
+    hist = torch.bincount(preds, minlength=10).float() / preds.shape[0]
+    return {"class_hist": [round(float(h), 4) for h in hist],
+            "frac_split_a": float((preds < 5).float().mean()),
+            "mean_max_prob": float(maxp.mean())}
+
+
+def compose_cifar(T: int = 1000, train_steps: int = 12000,
+                  batch_size: int = 256, lr: float = 2e-4, ema: float = 0.999,
+                  base_dim: int = 64, temp: float = 1.0,
+                  probe_steps: int = 2000, n_samples: int = 64,
+                  data_n: int = 8192, data_dir: Optional[str] = None,
+                  sanity: bool = False, out: str = "outputs/cifar_split",
+                  seed: int = 0, experts: Optional[Sequence[Any]] = None,
+                  key=None, device=None) -> dict:
+    """The CIFAR-10 class-split SUPERDIFF composition of
+    ``scripts/compose_cifar.py``, on the device (``None``: the CUDA card).
+    Returns the report it writes to ``out/cifar_split_composition.json``.
+
+    1. CIFAR-10's binary batches from ``data_dir`` (or where
+       ``data.load_cifar10`` finds them); where there are none, the
+       procedural stand-in (``data.synthetic_cifar10``, key fold_in(key,
+       1), ``data_n`` images) written as binary batches under
+       ``out/cifar-10-batches-bin`` and read back through the same reader.
+    2. A 10-class probe (bf16, noise-augmented at 0.1) trained
+       ``probe_steps`` with fold_in(key, 2).
+    3. Two unconditional 3-channel UNets of base ``base_dim``, widths
+       (1, 2, 4) x base, float32, on the classes {0-4} and {5-9}: the tree
+       drawn with fold_in(key, 10 + i), trained with fold_in(key, 20 + i)
+       on ``DDPMSchedule(T)`` (Adam at ``lr``, EMA ``ema``; 0: off);
+       ``experts``: the two trees, to skip the training.
+    4. ``n_samples`` of each expert solo by ancestral DDPM and of the pair
+       by SUPERDIFF OR at ``temp``, each job keyed fold_in(key, 50) (its
+       initial noise from fold_in of that key with 1, its steps' draws from
+       a generator seeded from it); samples clipped to [-1, 1]; per set the
+       probe's class histogram, the share on the first split and the mean
+       top probability; ``or_mixture_balance_error`` = |0.5 - the OR
+       share|.
+    5. The grids ``cifar_solo_A.png``, ``cifar_solo_B.png``,
+       ``cifar_superdiff_OR.png`` (64 samples, 8 a row) and
+       ``cifar_comparison.png`` (the first 16 of each, 16 a row).
+
+    ``key`` defaults to ``seed``; a ``rng.Replay`` replays the draws.
+    ``sanity`` cuts the sizes as the script's ``--sanity`` does. The
+    experts sample with their GroupNorm + SiLU through the
+    ``groupnorm_silu`` kernel (training runs none)."""
+    dev = resolve_device(device)
+    from .eval_superdiff import start  # it imports this module
+    if sanity:
+        train_steps, probe_steps, T = 40, 40, 8
+        n_samples, data_n, base_dim = 8, 320, 8
+        batch_size = 16
+    key = seed if key is None else key
+    os.makedirs(out, exist_ok=True)
+    loaded = data.load_cifar10(data_dir, device=dev)
+    standin = loaded is None
+    if standin:
+        raw, lab = data.synthetic_cifar10(_subkey(key, 1), data_n, device=dev)
+        bin_dir = data.write_cifar10_binaries(
+            raw, lab, os.path.join(out, "cifar-10-batches-bin"))
+        loaded = data.load_cifar10(bin_dir, device=dev)
+    imgs, labels = loaded
+    imgs, labels = imgs[:data_n], labels[:data_n]
+    probe, probe_params = ceval.train_probe(
+        _subkey(key, 2), imgs, (labels,), num_classes=(10,),
+        steps=probe_steps, noise_aug=0.1)
+    schedule = DDPMSchedule(num_timesteps=T)
+    model = UNet(in_channels=3, base_dim=base_dim, channel_mults=(1, 2, 4))
+    if experts is None:
+        experts = []
+        for i, split in enumerate(CIFAR_SPLITS):
+            mask = torch.isin(labels, torch.tensor(split, device=dev))
+            p, _ = train.train_expert(
+                _subkey(key, 20 + i), model.apply,
+                init_params(model, _subkey(key, 10 + i), dev), schedule,
+                imgs[mask], steps=train_steps, batch_size=batch_size, lr=lr,
+                ema_decay=ema or None)
+            experts.append(p)
+    params = [_float_tree(p, model, dev) for p in experts]
+    served = dataclasses.replace(model, fused_gn=True)
+    stacks = [_ddpm_stack_fn(ExpertStack(served.apply, ps), T, [], dev,
+                             torch.float32)
+              for ps in ([params[0]], [params[1]], params)]
+    shape = (n_samples,) + tuple(imgs.shape[1:])
+
+    def solo(stack):
+        def job(k):
+            x, gen, noise = start(k, shape, (T,) + shape, dev)
+            return samplers.ddpm_ancestral(lambda x_, ti: stack(x_, ti)[0],
+                                           schedule, gen, x, noise=noise)
+        return job
+
+    def superdiff_or(k):
+        x, gen, noise = start(k, shape, (T,) + shape, dev)
+        return samplers.superdiff(stacks[2], schedule, gen, x,
+                                  operation="OR", temp=temp, noise=noise)
+
+    report = {"dataset": ("procedural stand-in (synthetic_cifar10, via the "
+                          "binary-batch parse path)" if standin
+                          else "real CIFAR-10 binaries"),
+              "splits": [list(s) for s in CIFAR_SPLITS], "T": T,
+              "train_steps": train_steps, "sets": {}}
+    grids = []
+    for name, job in (("solo_A", solo(stacks[0])), ("solo_B", solo(stacks[1])),
+                      ("superdiff_OR", superdiff_or)):
+        with torch.inference_mode():
+            samples = job(_subkey(key, 50)).clamp(-1.0, 1.0)
+        report["sets"][name] = _cifar_stats(probe, probe_params, samples)
+        grids.append(samples[:16])
+        viz.save_grid(samples[:64], os.path.join(out, f"cifar_{name}.png"),
+                      nrow=8)
+    viz.save_grid(torch.cat(grids), os.path.join(out, "cifar_comparison.png"),
+                  nrow=16)
+    report["or_mixture_balance_error"] = abs(
+        0.5 - report["sets"]["superdiff_OR"]["frac_split_a"])
+    with open(os.path.join(out, "cifar_split_composition.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    return report

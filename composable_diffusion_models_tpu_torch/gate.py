@@ -15,6 +15,11 @@ composed class entropy within ``tol`` of the baseline's; the composed
 within-class diversity at least ``div_frac`` of the baseline's; and the
 composed FID-lite at most ``fid_slack`` times the baseline's.
 
+``entry.quality_gate_flagship`` runs the same protocol for any named
+configuration (``build_model``: ``unet<W>`` or ``dit_p<P>_d<D>_l<L>[_h<H>]``)
+and judges each against a report or against one of the configurations of
+the same run.
+
 The shapes gate (``entry.quality_gate_shapes``, the protocol of
 ``scripts/quality_gate_shapes.py``) judges its reports by the same
 ``judge`` under ``SHAPES_CRITERIA``: the 9 (shape, color) cells' mean and
@@ -23,21 +28,50 @@ least joint accuracy, their mean diversity and the FID-lite of all cells.
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from . import eval as ceval
+from .models.dit import DiT, make_folded_apply
+from .models.unet import UNet
 
 ROOT = Path(__file__).resolve().parent.parent
 SUBSETS = ((0, 1, 2), (3, 4, 5), (6, 7, 8))
 # the committed 48k-steps-per-expert report of dit_p14_d256_l4 (a PASS)
 BASELINE = ROOT / "artifacts" / "quality_gate_r5" / \
     "quality_dit_p14_d256_l4_s48000.json"
+
+def build_model(name: str, dtype: torch.dtype = torch.bfloat16
+                ) -> Tuple[Any, Callable]:
+    """(model, serve_fn) of a flagship gate configuration, named as
+    ``scripts/quality_gate_flagship.py`` names them, both computing in
+    ``dtype`` (the script's bf16; float32 holds the port to the JAX package
+    in tests) on 28 x 28 x 1 digits: ``unet<W>`` a UNet of base W, widths (W, 2W,
+    4W) (64 is the reference's M1, 32 its M5), trained with GroupNorm in
+    PyTorch ops and served with it through the ``groupnorm_silu`` kernel;
+    ``dit_p<P>_d<D>_l<L>[_h<H>]`` a DiT of patch P, width D, depth L and H
+    heads (8 by default), trained through the unfolded forward and served
+    through the folded one (``make_folded_apply``: the ``fused_dit_block``
+    kernel). ``model.apply`` is the training forward; ``serve_fn(params, x,
+    t)`` the program the gate samples, on trees cast to ``dtype`` (a
+    UNet's in the layout its ``apply`` reads)."""
+    if name.startswith("unet"):
+        m = UNet(in_channels=1, base_dim=int(name[4:]),
+                 channel_mults=(1, 2, 4), dtype=dtype)
+        return m, dataclasses.replace(m, fused_gn=True).apply
+    if name.startswith("dit"):
+        parts = {p[0]: int(p[1:]) for p in name.split("_")[1:]}
+        m = DiT(patch=parts["p"], dim=parts["d"], depth=parts["l"],
+                n_heads=parts.get("h", 8), in_channels=1, dtype=dtype)
+        return m, make_folded_apply(m)
+    raise ValueError(f"unknown config {name}")
+
 
 GATE_CRITERIA = (
     # (name, candidate_extractor, direction, kind)

@@ -21,7 +21,8 @@ import torch.nn.functional as F
 from ._build import library
 from .kernels import _DTYPE_CODE, _ptr, _stream_ptr, no_autodiff
 
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
+_FA_WGMMA_MAX_D = 128  # widest head of the wgmma route
 # flash_attention's routes and the limits that pick them (measured on the
 # card: chip_smoke.py times every route over Nk at path B's widest site and
 # at a long-query shape)
@@ -55,14 +56,15 @@ def flash_route(dtype: torch.dtype, n_heads: int, nk: int, d: int,
     by one warp; a longer row fills its own lines, and there the tiles
     route's one (batch, head) a block is faster); "wgmma" for bfloat16 from
     nk * d >= 2048 on, where q, k and v strides are multiples of 8 (16-byte
-    rows: both products on the tensor cores, fp32 operands split into two
-    bf16 terms); "tiles" for the rest (float32 FMAs on the CUDA cores, K and
-    V through shared memory)."""
+    rows, and d <= 128: both products on the tensor cores, fp32 operands
+    split into two bf16 terms); "tiles" for the rest (float32 FMAs on the
+    CUDA cores, K and V through shared memory; the only route at d = 256)."""
     row = d * dtype.itemsize
     if (nk <= _FA_SHORT_NK and row <= _FA_SHORT_ROW
             and n_heads <= _FA_THREADS):
         return "short"
     if (dtype == torch.bfloat16 and nk * d >= _FA_WGMMA_MIN_KD
+            and d <= _FA_WGMMA_MAX_D
             and all(s % 8 == 0 for s in strides[:9])):
         return "wgmma"
     return "tiles"
@@ -95,10 +97,10 @@ def _row_strides(name: str, t: torch.Tensor) -> tuple:
 
 def flash_head_dim(d: int) -> int:
     """The head width the kernel runs a head of width ``d`` at: the next of
-    (16, 32, 64, 128), the wrapper padding q, k and v with zero columns up
-    to it (zero columns add nothing to q k^T, and the output's extra
-    columns are dropped). Raises for D > 128, which the kernel does not
-    take (the TPU kernel pads any D to a multiple of 128)."""
+    (16, 32, 64, 128, 256), the wrapper padding q, k and v with zero
+    columns up to it (zero columns add nothing to q k^T, and the output's
+    extra columns are dropped). Raises for D > 256, which the kernel does
+    not take (the TPU kernel pads any D to a multiple of 128)."""
     for width in _HEAD_DIMS:
         if d <= width:
             return width
@@ -114,10 +116,10 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     transposed to (B, H, N, D) gives an output that transposes back
     without a copy).
 
-    Kernel limits: float32 or bfloat16, D <= 128 (checked on every device;
-    a D other than 16, 32, 64 or 128 runs padded with zero columns to the
-    next of them, :func:`flash_head_dim`, the scale still 1 / sqrt(D), and
-    its result comes back in a new tensor with q's layout); strided views
+    Kernel limits: float32 or bfloat16, D <= 256 (checked on every device;
+    a D other than 16, 32, 64, 128 or 256 runs padded with zero columns to
+    the next of them, :func:`flash_head_dim`, the scale still 1 / sqrt(D),
+    and its result comes back in a new tensor with q's layout); strided views
     are read through their strides (last axis dense, the other strides
     multiples of 4 elements, 16-byte aligned), never as if contiguous.
     :func:`flash_route` picks the kernel route from the dtype, H, Nk, the

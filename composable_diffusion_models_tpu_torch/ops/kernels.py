@@ -50,8 +50,9 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 # fused_dit_block's shared-memory layout constants (csrc/fused_dit_block.cu)
 _KT, _NC, _PAD = 32, 128, 8
 _PANEL_BYTES, _STAGES = 64 * 128, 8
-_ATTN_HEAD_DIMS = (8, 16, 32, 64)
-_BLOCK_HEAD_DIMS = (16, 32)
+_ATTN_HEAD_DIMS = (8, 16, 32, 48, 64)
+_BLOCK_HEAD_DIMS = (16, 32, 48, 64)
+_WGMMA_MAX_D = 256  # widest bfloat16 stream of the 64-row wgmma route
 # groupnorm_silu's launch geometry (csrc/groupnorm_silu.cu)
 _GN_THREADS = 256
 _GN_MAX_SPLITS = 32
@@ -166,7 +167,7 @@ def short_seq_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     keys of q k^T / sqrt(hd), times v. No mask, no bias.
 
     Kernel limits: float32 or bfloat16, contiguous, head width in
-    (8, 16, 32, 64), any B and T."""
+    (8, 16, 32, 48, 64), any B and T."""
     no_autodiff("short_seq_attention", qkv)
     _check_stream_tensor("qkv", qkv)
     b, t, d3 = qkv.shape
@@ -200,32 +201,52 @@ short_seq_attention.launches = 0
 # ---------------------------------------------------------- fused_dit_block
 def block_smem_bytes(dtype: torch.dtype, rows: int, d: int) -> int:
     """Shared memory of one fused_dit_block block holding ``rows`` token
-    rows. float32: the residual and LayerNorm tiles [rows][D + 8], the
-    4D-wide buffer [rows][4D + 8] and one weight k-tile [32][128 + 8].
-    bfloat16 (64 rows): up to 1024 bytes of alignment, the wide buffer as
-    swizzled panels of 64 x 64 elements, a ring of 8 weight stages of
-    32 x 128, the residual [64][D + 8], the rows' LayerNorm statistics and
-    24 mbarriers."""
-    if dtype == torch.bfloat16:
+    rows. The wgmma route (bfloat16, D <= 256, 64 rows): up to 1024 bytes
+    of alignment, the wide buffer as swizzled panels of 64 x 64 elements, a
+    ring of 8 weight stages of 32 x 128, the residual [64][D + 8], the
+    rows' LayerNorm statistics and 24 mbarriers. The rows route (float32 at
+    64, 32 or 16 rows; bfloat16 wider than 256 at 32), in the stream
+    type: the residual and LayerNorm tiles [rows][D + 8], the 4D-wide buffer
+    [rows][4D + 8] and one weight k-tile [32][128 + 8]."""
+    if dtype == torch.bfloat16 and d <= _WGMMA_MAX_D:
         if rows != 64:
-            raise ValueError("the bfloat16 kernel holds 64 rows a block")
+            raise ValueError("the bfloat16 kernel holds 64 rows a block at "
+                             f"D <= {_WGMMA_MAX_D}")
         return (1024 + -(-4 * d // 64) * _PANEL_BYTES
                 + _STAGES * _KT * _NC * 2 + rows * (d + _PAD) * 2
                 + 2 * rows * 4 + 3 * _STAGES * 8)
-    return 4 * (rows * (d + _PAD) * 2 + rows * (4 * d + _PAD)
-                + _KT * (_NC + _PAD))
+    if rows not in _block_row_choices(dtype, d):
+        raise ValueError(f"the {dtype} rows route holds "
+                         f"{_block_row_choices(dtype, d)} rows a block")
+    es = torch.empty((), dtype=dtype).element_size()
+    return es * (rows * (d + _PAD) * 2 + rows * (4 * d + _PAD)
+                 + _KT * (_NC + _PAD))
+
+
+def _block_row_choices(dtype: torch.dtype, d: int) -> tuple:
+    if dtype == torch.bfloat16:
+        return (64,) if d <= _WGMMA_MAX_D else (32,)
+    return (64, 32, 16)
 
 
 def block_rows(dtype: torch.dtype, t: int, d: int) -> int:
-    """Token rows a fused_dit_block block holds (whole images of T rows):
-    64 in bfloat16 (one warpgroup's wgmma M); in float32 the largest of 64,
-    32, 16 whose tile fits in shared memory. Raises if no tile holds one
-    image."""
-    for rows in ((64,) if dtype == torch.bfloat16 else (64, 32, 16)):
+    """Token rows a fused_dit_block block holds (whole images of T rows),
+    which also names the route: in bfloat16 64 (one warpgroup's wgmma M) up
+    to D = 256, past it the rows route at the larger of 32 and 16 whose
+    tile fits in shared memory; in float32 the largest of 64, 32, 16 that
+    fits. Raises if no tile holds one image."""
+    for rows in _block_row_choices(dtype, d):
         if t <= rows and block_smem_bytes(dtype, rows, d) <= _SMEM_LIMIT:
             return rows
     raise ValueError(f"fused_dit_block: an image of {t} tokens x {d} in "
                      f"{dtype} does not fit one block's shared memory")
+
+
+def block_route(dtype: torch.dtype, t: int, d: int) -> str:
+    """"wgmma" (the bfloat16 tensor-core kernel) or "rows" (fp32 FMAs over
+    staged k-tiles): the route :func:`block_rows` picks."""
+    rows = block_rows(dtype, t, d)
+    return "wgmma" if dtype == torch.bfloat16 and rows == 64 else "rows"
 
 
 @functools.cache
@@ -243,9 +264,11 @@ def fused_dit_block(tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2, b2,
     weights: returns x + mlp(x) where x = tok + attn(tok), in tok's dtype.
 
     Kernel limits: float32 or bfloat16 (every weight in tok's dtype,
-    contiguous), D a multiple of 32, head width D / n_heads in (16, 32), and
-    one image per block (:func:`block_rows`): T <= 64, and in float32
-    T * D small enough for shared memory (T <= 32 at D = 256)."""
+    contiguous), D a multiple of 32, head width D / n_heads in (16, 32, 48,
+    64), and one image per block (:func:`block_rows`): T <= 64 in bfloat16
+    up to D = 256 (the wgmma route); past that the rows route, T <= 32 and
+    D <= 576; in float32 T * D small enough for shared memory (T <= 32 at
+    D = 256)."""
     no_autodiff("fused_dit_block", tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2,
                 b2)
     _check_stream_tensor("tok", tok)

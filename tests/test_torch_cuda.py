@@ -245,9 +245,30 @@ def test_flash_attention_pads_the_head_width(dtype, d):
         dtype, ref, 1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,nq,nk,d", [
+    (4, 4, 256, 77, 256), (2, 2, 1024, 1024, 256), (8, 2, 100, 3, 256),
+    (4, 4, 256, 77, 160)])
+def test_flash_attention_at_heads_past_128(dtype, b, h, nq, nk, d):
+    """Heads of 256 (and of 160, padded to 256) on the tiles route, as the
+    TPU kernel takes any width: 1e-5 of scale in float32, 4 bf16 ulps in
+    bf16, one launch each."""
+    g = torch.Generator().manual_seed(nq + nk + d)
+    q, k, v = (torch.randn(b, n, h, d, generator=g).to("cuda", dtype)
+               .transpose(1, 2) for n in (nq, nk, nk))
+    assert attention.flash_route(dtype, h, nk, 256, (0,) * 12) == "tiles"
+    n0 = attention.flash_attention.launches
+    got = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches == n0 + 1
+    ref = attention.flash_attention_ref(q, k, v)
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(
+        dtype, ref, 1e-5)
+
+
 def test_flash_attention_rejects_on_the_card():
-    q = torch.zeros(1, 2, 8, 160, device="cuda")
-    with pytest.raises(ValueError, match="D=160"):
+    q = torch.zeros(1, 2, 8, 300, device="cuda")
+    with pytest.raises(ValueError, match="D=300"):
         attention.flash_attention(q, q, q)
     strided = torch.zeros(1, 2, 8, 32, device="cuda")[..., ::2]
     with pytest.raises(ValueError, match="stride 1"):
@@ -583,6 +604,29 @@ def test_ddpm_paths_launch_groupnorm_silu():
             want = (8 * forwards, 2 * forwards) if fused else (0, 0)
             assert (kernels.groupnorm_silu.launches - n0[0],
                     kernels.groupnorm_silu_split.launches - n0[1]) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,h", [(256, 4, 384, 8), (33, 16, 384, 6),
+                                     (256, 16, 192, 6), (64, 4, 192, 4),
+                                     (64, 4, 256, 4), (7, 4, 96, 2)])
+def test_block_kernel_at_the_frontier_widths(dtype, b, t, d, h):
+    """K1 at the frontier candidates' widths: heads of 48 (D = 96, 192,
+    384) and 64, D = 384 on the rows route in bf16 (32 rows a block), D =
+    192 (N chunks no multiple of 128) at 16 tokens. fp32 2e-4, bf16 4 ulps
+    of the scale; K2 at the same heads, fp32 1e-5."""
+    args = _block_args(b, t, d, dtype, seed=b + d)
+    n0 = kernels.fused_dit_block.launches
+    got = kernels.fused_dit_block(*args, h)
+    assert kernels.fused_dit_block.launches == n0 + 1
+    ref = kernels.fused_dit_block_ref(*args, h)
+    qkv = torch.randn(b, t, 3 * d, device="cuda").to(dtype)
+    got_a = kernels.short_seq_attention(qkv, h)
+    ref_a = kernels.short_seq_attention_ref(qkv, h)
+    torch.cuda.synchronize()
+    for g, r, fp32_tol in ((got, ref, 2e-4), (got_a, ref_a, 1e-5)):
+        assert float((g.float() - r.float()).abs().max()) <= _tol(
+            dtype, r, fp32_tol)
 
 
 @pytest.mark.parametrize("b", [1, 5, 64])

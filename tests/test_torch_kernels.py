@@ -386,13 +386,19 @@ def test_block_smem_bytes_fit_at_every_supported_shape(t, d):
 
 def test_block_smem_bytes_bf16_is_the_kernels_layout():
     """At D = 256: 1024 to align, 16 panels of 8 KB, 8 stages of 8 KB, the
-    residual [64][264], 2 x 64 float32 statistics and 24 mbarriers."""
+    residual [64][264], 2 x 64 float32 statistics and 24 mbarriers. Past
+    D = 256 the rows route in bf16: X and LN(x) [32][D + 8], the wide
+    buffer [32][4D + 8] and one k-tile [32][136], two bytes each; an image
+    of more than 32 tokens fits no tile there."""
     assert kernels.block_smem_bytes(torch.bfloat16, 64, 256) == (
         1024 + 16 * 8192 + 8 * 8192 + 64 * 264 * 2 + 512 + 192)
     with pytest.raises(ValueError, match="64 rows"):
         kernels.block_smem_bytes(torch.bfloat16, 32, 256)
+    assert kernels.block_rows(torch.bfloat16, 4, 288) == 32
+    assert kernels.block_smem_bytes(torch.bfloat16, 32, 384) == 2 * (
+        2 * 32 * 392 + 32 * 1544 + 32 * 136)
     with pytest.raises(ValueError, match="shared memory"):
-        kernels.block_rows(torch.bfloat16, 4, 288)
+        kernels.block_rows(torch.bfloat16, 49, 288)
 
 
 # ---------------------------------------------------------- flash_attention
@@ -567,24 +573,25 @@ def test_flash_wgmma_split_arithmetic(d):
 
 # ------------------------------------------- limits shared by CPU and card
 def test_flash_head_dim_pads_to_the_kernel_widths():
-    """The pure helper behind the card's padding: the next of 16, 32, 64
-    and 128; wider heads raise."""
-    widths = {d: attention.flash_head_dim(d) for d in range(1, 129)}
+    """The pure helper behind the card's padding: the next of 16, 32, 64,
+    128 and 256; wider heads raise."""
+    widths = {d: attention.flash_head_dim(d) for d in range(1, 257)}
     assert {widths[d] for d in range(1, 17)} == {16}
     assert {widths[d] for d in range(17, 33)} == {32}
     assert {widths[d] for d in range(33, 65)} == {64}
     assert {widths[d] for d in range(65, 129)} == {128}
-    with pytest.raises(ValueError, match="D=129"):
-        attention.flash_head_dim(129)
+    assert {widths[d] for d in range(129, 257)} == {256}
+    with pytest.raises(ValueError, match="D=257"):
+        attention.flash_head_dim(257)
 
 
-@pytest.mark.parametrize("d", [8, 24, 100, 160])
+@pytest.mark.parametrize("d", [8, 24, 100, 160, 300])
 def test_flash_attention_cpu_takes_what_the_card_takes(d):
-    """Any D up to 128 gives the plain version on the CPU (the card pads
+    """Any D up to 256 gives the plain version on the CPU (the card pads
     it); a D the card refuses, the CPU refuses too."""
     q, k, v = (torch.randn(2, 2, n, d) for n in (5, 3, 3))
-    if d > 128:
-        with pytest.raises(ValueError, match="D=160"):
+    if d > 256:
+        with pytest.raises(ValueError, match="D=300"):
             attention.flash_attention(q, k, v)
         return
     torch.testing.assert_close(attention.flash_attention(q, k, v),
