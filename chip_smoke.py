@@ -207,7 +207,28 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     committed ``unet64`` report, the MFU taken from phase 4: exact K1
     launches per scoring pass, the table read back, each candidate's
     trained expert against the plain version of K1;
-28. one ``kernels`` JSON line, then the result line.
+28. ``parallel/`` at world 1 over NCCL in this process: the flagship's
+    expert-parallel composition (``parallel.sample_expert_parallel``: the
+    three full-width bf16 experts, batch 2048, 50 DDIM steps, expert 1 x
+    data 1) against phase 4's ``entry.sample`` on the same noise and trees,
+    exactly 600 ``fused_dit_block`` launches and one all-reduce a step;
+    then ``parallel.dryrun.dryrun_multichip(1)`` (one NCCL rank: EP train
+    and DDIM, the folded DiT through K1, data x tensor parallel, the
+    pipeline and ring attention on CUDA tensors);
+29. a world of 2 ranks over gloo, both on the one card (NCCL takes one card
+    a rank), built kernels shared: (a) the flagship at expert 2 x data 1,
+    K = 3 padded to 4 (400 K1 launches a rank), (b) at expert 1 x data 2
+    (1024 rows and 600 K1 a rank), (c) path A's two ``unet64`` experts at
+    expert 2 (batch 128, 400 + 100 K4 a rank), each held against the
+    single-process entry point (bf16 on the mean, 0.05) with each rank's
+    launches returned and checked; (d) three float32 SGD steps of a
+    data-parallel flagship expert (batch 256, 128 a rank) and of two
+    expert-parallel ones against the single-process step on the same
+    draws (each leaf within 1e-5 of its scale or 1e-2 of the distance it
+    moved), the EP step's collectives on the data axis only;
+    images/s, steps/s and the world's start-up time, which two ranks on
+    one card make no speed-up;
+30. one ``kernels`` JSON line, then the result line.
 
 Exits with code 2 and prints no result where there is no CUDA card.
 """
@@ -3222,6 +3243,306 @@ def k1_blocks_held(label: str, run, kernels, dit, dtype) -> None:
              f"plain version")
 
 
+# ---------------------------------------------------------- phases 28-29
+EP_STEPS = 50          # the served paths' DDIM steps
+EP_TRAIN_STEPS = 3     # optimizer steps of the DP and EP train checks
+EP_TRAIN_BATCH = 256   # the DP step's global batch (128 a rank)
+EP_LR = 1e-2
+
+
+class _SGD:
+    """p - lr g (optax.sgd): the DP / EP trees are held against the
+    single-process step with it, as tests/test_sharding.py holds DP, since
+    Adam's first steps move each weight by about lr sign(g), which one
+    changed summation order can flip where g is near 0."""
+
+    def __init__(self, lr):
+        self.lr = lr
+
+    def init(self, params):
+        return {}
+
+    def update(self, grads, state, params):
+        from composable_diffusion_models_tpu_torch import train
+        return train.tree_map(lambda p, g: p - self.lr * g, params,
+                              grads), state
+
+
+def _flagship_trees(convert, entry, seeds):
+    return [convert.from_flax(convert.init_params(entry.FLAGSHIP, seed=s))
+            for s in seeds]
+
+
+def _shapes_trees(convert, entry):
+    return [convert.from_flax(convert.init_params(entry.SHAPES_UNET,
+                                                  seed=20 + i))
+            for i in range(entry.N_SHAPES_EXPERTS)]
+
+
+def _train_inputs():
+    gen = torch.Generator().manual_seed(7)
+    return (torch.randn(EP_TRAIN_BATCH, 28, 28, 1, generator=gen),
+            torch.randn(2, EP_TRAIN_BATCH // 2, 28, 28, 1, generator=gen))
+
+
+def _step_keys(rng):
+    return [rng.fold_in(1234, s) for s in range(EP_TRAIN_STEPS)]
+
+
+def _moved_within(label, got, ref, init) -> None:
+    """The bar for trained trees: each leaf within 1e-5 of its scale or
+    1e-2 of the distance it moved."""
+    worst = 0.0
+    for g, r, p0 in zip(got, ref, init):
+        r, p0 = r.float().cpu(), p0.float().cpu()
+        err = float((g.float().cpu() - r).abs().max())
+        bar = max(1e-5 * float(r.abs().max()),
+                  1e-2 * float((r - p0).abs().max()))
+        worst = max(worst, err / bar if bar else math.inf)
+    log(f"  {label}: worst leaf error {worst:.3f} of its bar (1e-5 of the "
+        f"leaf's scale or 1e-2 of the distance it moved)")
+    if not worst <= 1.0:
+        fail(f"{label}: the trees disagree with the single-process step")
+
+
+def ep_world2_rank(device, x_init, x_a, labels_a):
+    """Phase 29 on one rank of a gloo world of 2 sharing the card: (a) the
+    flagship at expert 2 x data 1 (K = 3 padded to 4), (b) at expert 1 x
+    data 2, (c) path A's UNets at expert 2, (d) a DP and an EP train step.
+    Returns this rank's outputs, launches, collectives and times."""
+    entered = time.time()  # the host's clock: the parent reads it too
+    from composable_diffusion_models_tpu_torch import (convert, entry, rng,
+                                                       train)
+    from composable_diffusion_models_tpu_torch.experts import stack_params
+    from composable_diffusion_models_tpu_torch.ops import attention, kernels
+    from composable_diffusion_models_tpu_torch.parallel import mesh as pmesh
+    from composable_diffusion_models_tpu_torch.parallel.sample import (
+        sample_expert_parallel)
+    from composable_diffusion_models_tpu_torch.parallel.train import (
+        make_dp_train_step, make_expert_parallel_train_step,
+        shard_expert_batch)
+    from composable_diffusion_models_tpu_torch.schedules import VPSchedule
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trees = _flagship_trees(convert, entry, range(entry.N_EXPERTS))
+    out = {"entered": entered}
+
+    def serve(label, axes, model, params, x, labels=None):
+        mesh = pmesh.make_mesh(axes)
+        sample_expert_parallel(params, x[:64], mesh, model, labels=None
+                               if labels is None else labels[:, :64],
+                               n_steps=2, device=device)  # warm-up
+        reset_launches(kernels, attention)
+        pmesh.COLLECTIVES.clear()
+        res, sec = timed(lambda: sample_expert_parallel(
+            params, x, mesh, model, labels=labels, n_steps=EP_STEPS,
+            device=device))
+        out[label] = {"x": res.cpu(), "sec": sec,
+                      "launches": read_launches(kernels, attention),
+                      "colls": len(pmesh.COLLECTIVES)}
+
+    serve("a", {"expert": 2, "data": 1}, entry.FLAGSHIP, trees, x_init)
+    serve("b", {"expert": 1, "data": 2}, entry.FLAGSHIP, trees, x_init)
+    serve("c", {"expert": 2, "data": 1}, entry.SHAPES_UNET,
+          _shapes_trees(convert, entry), x_a, labels_a)
+
+    # (d) float32 DP and EP steps from the single-process step's draws
+    x0, xe = _train_inputs()
+    keys = _step_keys(rng)
+    model, sched, tx = entry.FLAGSHIP, VPSchedule(), _SGD(EP_LR)
+    mesh = pmesh.make_mesh({"data": 2})
+    step = make_dp_train_step(model.apply, sched, tx, mesh)
+    params = train.tree_map(lambda a: a.to(device), trees[0])
+    x_local = pmesh.shard_batch(x0, mesh).to(device)
+    step(params, {}, keys[0], x_local)  # warm-up: cuBLAS, autograd
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in keys:
+        params, _, loss = step(params, {}, k, x_local)
+    torch.cuda.synchronize()
+    out["dp"] = {"params": [p.cpu() for p in train.flatten(params)[1]],
+                 "sec": time.perf_counter() - t0, "loss": float(loss)}
+    mesh = pmesh.make_mesh({"expert": 2, "data": 1})
+    e = int(mesh.get_local_rank("expert"))
+    step = make_expert_parallel_train_step(model.apply, sched, tx, mesh)
+    stacked = stack_params([train.tree_map(lambda a: a.to(device), trees[e])])
+    opt = stack_params([{}])
+    batch = shard_expert_batch(xe, mesh).to(device)
+    step(stacked, opt, keys[0], batch)  # warm-up
+    pmesh.COLLECTIVES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in keys:
+        stacked, opt, losses = step(stacked, opt, k, batch)
+    torch.cuda.synchronize()
+    out["ep"] = {"params": [p[0].cpu() for p in train.flatten(stacked)[1]],
+                 "sec": time.perf_counter() - t0, "expert": e,
+                 "colls": sorted(set(pmesh.COLLECTIVES))}
+    return out
+
+
+def parallel_paths(card, convert, entry, kernels, attention, x_init,
+                   out_main) -> dict:
+    """Phases 28 and 29. ``out_main`` is phase 4's entry.sample(x_init).
+    Returns the kernel launches of each expert-parallel run."""
+    import tempfile
+    import torch.distributed as dist
+    from composable_diffusion_models_tpu_torch import rng, train
+    from composable_diffusion_models_tpu_torch.parallel import mesh as pmesh
+    from composable_diffusion_models_tpu_torch.parallel.dryrun import (
+        dryrun_multichip)
+    from composable_diffusion_models_tpu_torch.parallel.sample import (
+        sample_expert_parallel)
+    from composable_diffusion_models_tpu_torch.schedules import VPSchedule
+    launches = {}
+    trees = _flagship_trees(convert, entry, range(entry.N_EXPERTS))
+    k1_want = 4 * entry.N_EXPERTS * EP_STEPS
+
+    def held(label, got, ref):
+        d = (got - ref.cpu()).abs()
+        same = bool(torch.equal(got, ref.cpu()))
+        log(f"  {label} vs the single-process entry point: mean |diff| "
+            f"{float(d.mean()):.4e}, max {float(d.max()):.4e}, same bits: "
+            f"{same} (bf16 held on the mean, 0.05)")
+        if not float(d.mean()) <= 0.05 or not bool(torch.isfinite(got).all()):
+            fail(f"{label} disagrees with the single-process entry point")
+
+    # 28. world 1 over NCCL in this process, then the dry run's own rank
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        pmesh.initialize_distributed(0, 1, f"file://{store}/store", "nccl")
+        mesh = pmesh.make_mesh({"expert": 1, "data": 1})
+        log(f"phase 28: world 1 over NCCL up in "
+            f"{time.perf_counter() - t0:.2f} s")
+        sample_expert_parallel(trees, x_init[:64], mesh, entry.FLAGSHIP,
+                               n_steps=2)
+        reset_launches(kernels, attention)
+        pmesh.COLLECTIVES.clear()
+        out, sec = timed(lambda: sample_expert_parallel(
+            trees, x_init, mesh, entry.FLAGSHIP, n_steps=EP_STEPS))
+        got = read_launches(kernels, attention)
+        dist.destroy_process_group()
+    b = x_init.shape[0]
+    log(f"  flagship EP (expert 1 x data 1, NCCL): {b / sec:.1f} images/s, "
+        f"{sec / EP_STEPS * 1e3:.3f} ms/step ({card}); "
+        f"fused_dit_block {got['fused_dit_block']}, all-reduces "
+        f"{len(pmesh.COLLECTIVES)}")
+    held("flagship EP at world 1", out.cpu(), out_main)
+    if got["fused_dit_block"] != k1_want:
+        fail(f"EP world 1: fused_dit_block launched "
+             f"{got['fused_dit_block']} times, expected {k1_want}")
+    if len(pmesh.COLLECTIVES) != EP_STEPS:
+        fail("EP world 1: not one all-reduce a step")
+    launches["ep_nccl_world1"] = got
+    t0 = time.perf_counter()
+    summary = dryrun_multichip(1)
+    log(f"  dry run at world 1 (NCCL; TP, PP and ring on CUDA tensors): "
+        f"{time.perf_counter() - t0:.1f} s with the rank's start-up "
+        f"({card}): {summary[0]}")
+
+    # 29. world 2 over gloo, both ranks on this one card
+    log("phase 29: a world of 2 ranks over gloo, BOTH on the one card "
+        "(NCCL takes one card a rank; gloo all-reduces CUDA tensors "
+        "through the host); two processes sharing one card are no "
+        "speed-up: the times below show the cost, not a gain")
+    gen = torch.Generator().manual_seed(11)
+    x_a = torch.randn(A_BATCH, 64, 64, 3, generator=gen)
+    labels_a = torch.randint(0, 3, (entry.N_SHAPES_EXPERTS, A_BATCH),
+                             generator=gen)
+    t0, spawned = time.perf_counter(), time.time()
+    ranks = pmesh.run_ranks(ep_world2_rank, 2, x_init.cpu(), x_a, labels_a,
+                            backend="gloo", device="cuda")
+    wall = time.perf_counter() - t0
+    work = max(sum(r[p]["sec"] for p in ("a", "b", "c", "dp", "ep"))
+               for r in ranks)
+    log(f"  world of 2 (gloo): {wall:.1f} s in all; start-up (spawn to the "
+        f"last rank's first line, its process group joined) "
+        f"{max(r['entered'] for r in ranks) - spawned:.1f} s; the timed "
+        f"calls {work:.1f} s on the slower rank; warm-ups and the exchange "
+        f"of results the rest ({card})")
+
+    def k(r, p, name):
+        return ranks[r][p]["launches"][name]
+
+    # (a) K = 3 padded to 4 over expert 2: 2 experts a rank
+    want = {"a": (2 * 4 * EP_STEPS, "fused_dit_block"),
+            "b": (k1_want, "fused_dit_block")}
+    for p, label in (("a", "flagship EP, expert 2 x data 1 (K 3 padded "
+                      "to 4)"), ("b", "flagship EP, expert 1 x data 2")):
+        per_rank, name = want[p]
+        sec = max(ranks[r][p]["sec"] for r in range(2))
+        log(f"  {label}: {b / sec:.1f} images/s, "
+            f"{sec / EP_STEPS * 1e3:.3f} ms/step ({card}; two ranks on one "
+            f"card); {name} {[k(r, p, name) for r in range(2)]}, "
+            f"all-reduces {[ranks[r][p]['colls'] for r in range(2)]}")
+        for r in range(2):
+            if k(r, p, name) != per_rank:
+                fail(f"EP {p}: rank {r} launched {name} {k(r, p, name)} "
+                     f"times, expected {per_rank}")
+            if ranks[r][p]["colls"] != EP_STEPS:
+                fail(f"EP {p}: rank {r} made not one all-reduce a step")
+        launches[f"ep_gloo_{p}"] = {
+            n: sum(k(r, p, n) for r in range(2))
+            for n in ranks[0][p]["launches"]}
+    held("flagship EP expert 2 (rank 0)", ranks[0]["a"]["x"], out_main)
+    held("flagship EP expert 2 (rank 1)", ranks[1]["a"]["x"], out_main)
+    half = b // 2
+    for r in range(2):
+        held(f"flagship EP data 2, rank {r}'s {half} rows",
+             ranks[r]["b"]["x"], out_main[r * half:(r + 1) * half])
+
+    # (c) path A: 2 UNets over expert 2, batch 128 on each rank
+    shapes = entry.load_unets(_shapes_trees(convert, entry))
+    ref_a = entry.sample_shapes(shapes, x_a, labels_a, n_steps=EP_STEPS)
+    sec = max(ranks[r]["c"]["sec"] for r in range(2))
+    gn = [(k(r, "c", "groupnorm_silu"), k(r, "c", "groupnorm_silu_split"))
+          for r in range(2)]
+    log(f"  path A EP, expert 2: {A_BATCH / sec:.1f} images/s, "
+        f"{sec / EP_STEPS * 1e3:.3f} ms/step ({card}; two ranks on one "
+        f"card); groupnorm_silu + split a rank {gn}")
+    for r in range(2):
+        if gn[r] != (8 * EP_STEPS, 2 * EP_STEPS):
+            fail(f"EP path A: rank {r} launched K4 {gn[r]} times, expected "
+                 f"{(8 * EP_STEPS, 2 * EP_STEPS)}")
+        held(f"path A EP expert 2 (rank {r})", ranks[r]["c"]["x"], ref_a)
+    launches["ep_gloo_c"] = {n: sum(k(r, "c", n) for r in range(2))
+                             for n in ranks[0]["c"]["launches"]}
+
+    # (d) the train steps against the single-process step, same draws
+    x0, xe = _train_inputs()
+    keys = _step_keys(rng)
+    step = train.make_train_step(
+        train.make_loss_fn(entry.FLAGSHIP.apply, VPSchedule()), _SGD(EP_LR))
+    init = [train.tree_map(lambda a: a.cuda(), t) for t in trees[:2]]
+    p = init[0]
+    for key in keys:
+        p, _, _ = step(p, {}, key, x0.cuda())
+    dp_sec = max(r["dp"]["sec"] for r in ranks)
+    log(f"  DP step (float32, batch {EP_TRAIN_BATCH}, "
+        f"{EP_TRAIN_BATCH // 2} a rank): {EP_TRAIN_STEPS / dp_sec:.2f} "
+        f"steps/s ({card}; two ranks on one card), loss "
+        f"{ranks[0]['dp']['loss']:.5f}")
+    for r in range(2):
+        _moved_within(f"DP rank {r}", ranks[r]["dp"]["params"],
+                      train.flatten(p)[1], train.flatten(init[0])[1])
+    ep_sec = max(r["ep"]["sec"] for r in ranks)
+    log(f"  EP step (two experts, expert 2, {EP_TRAIN_BATCH // 2} rows "
+        f"each): {EP_TRAIN_STEPS / ep_sec:.2f} steps/s ({card}); "
+        f"collectives {ranks[0]['ep']['colls']}")
+    for r in range(2):
+        e = ranks[r]["ep"]["expert"]
+        if {c[:2] for c in ranks[r]["ep"]["colls"]} != {("all_reduce",
+                                                          "data")}:
+            fail("EP step: a collective left the data axis")
+        p, xb = init[e], xe[e].cuda()
+        for key in keys:
+            kd = rng.Draws(key, xb.device).fold_in(e).fold_in(0).split(1)[0]
+            p, _, _ = step(p, {}, kd, xb)
+        _moved_within(f"EP rank {r} (expert {e})", ranks[r]["ep"]["params"],
+                      train.flatten(p)[1], train.flatten(init[e])[1])
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3421,10 +3742,17 @@ def main() -> int:
     frontier_pass = frontier_path(card, entry, dit, kernels, attention, mfu)
     took[27] = time.perf_counter() - t0
     shutil.rmtree(SMOKE_OUT, ignore_errors=True)
-    log("phases 18-27 took " + ", ".join(f"{k}: {v:.1f} s"
+
+    # 28-29. expert-parallel sampling and training on torch.distributed:
+    # world 1 over NCCL (and the dry run), world 2 over gloo on the card
+    t0 = time.perf_counter()
+    ep_launches = parallel_paths(card, convert, entry, kernels, attention,
+                                 x_init, out)
+    took["28-29"] = time.perf_counter() - t0
+    log("phases 18-29 took " + ", ".join(f"{k}: {v:.1f} s"
                                          for k, v in took.items()))
 
-    # 21. the kernels line, then the result line. launches: each kernel's
+    # 30. the kernels line, then the result line. launches: each kernel's
     # count on the path that serves it (fused_dit_block: the DiT path;
     # short_seq_attention: fused_block=False; groupnorm_silu and its two-part
     # form groupnorm_silu_split (the same source; the JAX function it
@@ -3465,7 +3793,9 @@ def main() -> int:
                 "dit": launches["fused_dit_block"],
                 "shapes_gate": gate_run["launches"]["dit_p8_d256_l8"][
                     "fused_dit_block"],
-                "frontier_gate_pass": frontier_pass["fused_dit_block"]}
+                "frontier_gate_pass": frontier_pass["fused_dit_block"],
+                **{p: c["fused_dit_block"] for p, c in ep_launches.items()
+                   if p != "ep_gloo_c"}}
             row["shapes_gate_shape"] = k1_gate
         if row["name"] == "flash_attention":
             row["launches_by_path"] = {
@@ -3494,6 +3824,8 @@ def main() -> int:
         if row["name"] in ("groupnorm_silu", "groupnorm_silu_split"):
             row["launches_by_path"] = {p: c[row["name"]]
                                        for p, c in by_path.items()}
+            row["launches_by_path"]["ep_gloo_path_a"] = \
+                ep_launches["ep_gloo_c"][row["name"]]
             row["ddpm_path_shapes"] = [
                 {k: v for k, v in r.items() if k != "name"}
                 for r in ddpm_gn_rows if r["name"] == row["name"]]

@@ -8,9 +8,9 @@ adapters and output lifts, e.g. a 1-channel shape expert beside a
 projection those experts see through, and its lift). The JAX
 ``ExpertStack`` unrolls small K and vmaps over stacked parameters for large
 K; both compute the same (K, B, ...) stack, which a Python loop over the
-experts computes here for every K. Still to port: ``stack_params``,
-``unstack_params`` and ``pad_expert_stack``, which exist for the
-expert-parallel sharding of ``parallel/``.
+experts computes here for every K. ``stack_params``, ``unstack_params`` and
+``pad_expert_stack`` put the K trees on one leading axis, the unit that
+``parallel/`` shards over its ``expert`` axis.
 """
 
 from __future__ import annotations
@@ -20,6 +20,38 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from .compose import LUMA_W, constant
+from .train import tree_map
+
+Params = Any
+
+
+def stack_params(params_list: Sequence[Params]) -> Params:
+    """Stack K identically-shaped parameter trees on a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *params_list)
+
+
+def unstack_params(stacked: Params, k: int) -> list:
+    """The K trees of a stack (views of its leaves)."""
+    return [tree_map(lambda x, i=i: x[i], stacked) for i in range(k)]
+
+
+def pad_expert_stack(stacked_params: Params, weights: torch.Tensor,
+                     multiple: int, labels: Sequence[torch.Tensor] = ()):
+    """Pad a stacked expert tree to a multiple of the expert axis' size.
+
+    The padding repeats expert 0 with a ZERO blend weight (and expert 0's
+    per-expert labels): the weighted blend divides by the sum of the
+    weights, so the composition is unchanged. Returns (padded params,
+    padded weights, padded labels); a no-op when ``multiple`` divides K."""
+    k = weights.shape[0]
+    pad = (-k) % multiple
+    if pad == 0:
+        return stacked_params, weights, tuple(labels)
+
+    def rep(a):
+        return torch.cat([a, a[:1].expand(pad, *a.shape[1:])], dim=0)
+    w = torch.cat([weights, weights.new_zeros((pad,))])
+    return tree_map(rep, stacked_params), w, tuple(rep(lab) for lab in labels)
 
 
 class PerExpert:

@@ -25,12 +25,15 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def time_embedding(p, t: torch.Tensor, base_dim: int,
-                   dtype: torch.dtype) -> torch.Tensor:
+                   dtype: torch.dtype, tp=None) -> torch.Tensor:
     """sinusoid(base_dim) -> Dense -> SiLU -> Dense over (B,) times, in
     ``dtype`` (the flax ``TimeEmbedding``; ``p`` holds ``Dense_0`` and
-    ``Dense_1``). A batch-1 ``t`` gives a (1, emb_dim) row that broadcasts."""
+    ``Dense_1``). A batch-1 ``t`` gives a (1, emb_dim) row that broadcasts.
+    ``tp``: the UNet's tensor-parallel layout, if any (``models.unet``)."""
     def dense(v, dp):
-        return F.linear(v.to(dtype), dp["kernel"].to(dtype).t(),
-                        dp["bias"].to(dtype))
+        def linear(v):
+            return F.linear(v.to(dtype), dp["kernel"].to(dtype).t(),
+                            dp["bias"].to(dtype))
+        return linear(v) if tp is None else tp.layer(dp["kernel"], linear, v)
     return dense(F.silu(dense(sinusoidal_embedding(t, base_dim),
                               p["Dense_0"])), p["Dense_1"])

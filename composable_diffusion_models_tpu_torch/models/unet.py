@@ -23,6 +23,13 @@ branch, and launches no GroupNorm kernel. ``flash_attn`` keeps its name: ``True`
 cross-attention through the ``flash_attention`` kernel, ``False`` through
 two einsums.
 
+Tensor parallelism: :meth:`UNet.apply` takes the layout of a
+tensor-parallel call as ``tp`` (``parallel.tp.make_tp_apply`` passes it)
+and runs every parameterised layer through it, so that a layer whose
+weight is this rank's slice of the output channels computes that slice
+and the layout gathers the rest; with ``tp=None`` (every other caller)
+each layer computes all of its channels.
+
 Training: :meth:`UNet.apply` is differentiable with ``fused_gn=False`` (no
 kernel has a backward; the GroupNorm wrappers refuse inputs that require
 grad). ``train=True`` applies the module's dropout (rate ``dropout``, 0.1)
@@ -94,39 +101,58 @@ def _gn_groups(channels: int, preferred: int = 8) -> int:
     return 1
 
 
-def _dense(v, p, dtype):
+def _layer(tp, weight: torch.Tensor, fn, *xs) -> torch.Tensor:
+    """``fn(*xs)``: the layer whose output channels ``weight`` holds, run
+    through the tensor-parallel layout ``tp`` where there is one."""
+    return fn(*xs) if tp is None else tp.layer(weight, fn, *xs)
+
+
+def _whole(tp, leaf: torch.Tensor) -> torch.Tensor:
+    """A norm's per-channel parameter with all of its channels."""
+    return leaf if tp is None else tp.whole(leaf)
+
+
+def _dense(v, p, dtype, tp=None):
     bias = p["bias"].to(dtype) if "bias" in p else None
-    return F.linear(v.to(dtype), p["kernel"].to(dtype).t(), bias)
+    w = p["kernel"]
+    return _layer(tp, w, lambda v: F.linear(v.to(dtype), w.to(dtype).t(),
+                                            bias), v)
 
 
-def _conv(x: torch.Tensor, weight: torch.Tensor, bias, dtype) -> torch.Tensor:
+def _conv(x: torch.Tensor, weight: torch.Tensor, bias, dtype,
+          tp=None) -> torch.Tensor:
     """'SAME' stride-1 convolution of an NHWC tensor with an OIHW weight;
     returns a contiguous NHWC tensor."""
-    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), weight.to(dtype),
-                 None if bias is None else bias.to(dtype),
-                 padding=weight.shape[-1] // 2)
-    return y.permute(0, 2, 3, 1).contiguous()
+    def conv(x):
+        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), weight.to(dtype),
+                     None if bias is None else bias.to(dtype),
+                     padding=weight.shape[-1] // 2)
+        return y.permute(0, 2, 3, 1).contiguous()
+    return _layer(tp, weight, conv, x)
 
 
-def _split_conv(parts, p, dtype) -> torch.Tensor:
+def _split_conv(parts, p, dtype, tp=None) -> torch.Tensor:
     """Convolution over a tuple of inputs treated as one channel-
     concatenated tensor: the kernel is split along its input-channel axis
     and the partial outputs are summed."""
-    out, off = None, 0
-    for i, part in enumerate(parts):
-        cc = part.shape[-1]
-        y = _conv(part, p["weight"][:, off:off + cc],
-                  p["bias"] if i == len(parts) - 1 else None, dtype)
-        out = y if out is None else out + y
-        off += cc
-    return out
+    def conv(*parts):
+        out, off = None, 0
+        for i, part in enumerate(parts):
+            cc = part.shape[-1]
+            y = _conv(part, p["weight"][:, off:off + cc],
+                      p["bias"] if i == len(parts) - 1 else None, dtype)
+            out = y if out is None else out + y
+            off += cc
+        return out
+    return _layer(tp, p["weight"], conv, *parts)
 
 
-def gn_silu(p, x, dtype, fused_gn: bool):
+def gn_silu(p, x, dtype, fused_gn: bool, tp=None):
     """GroupNorm + SiLU with parameters ``p`` ({scale, bias}); a tuple input
     is normalised as if concatenated on channels (never materialised) and
     returned as a tuple."""
-    scale, bias = p["scale"].float(), p["bias"].float()
+    scale = _whole(tp, p["scale"]).float()
+    bias = _whole(tp, p["bias"]).float()
     if isinstance(x, (tuple, list)):
         groups = _gn_groups(sum(part.shape[-1] for part in x))
         split = groupnorm_silu_split if fused_gn else groupnorm_silu_split_ref
@@ -152,57 +178,58 @@ def dropout(h: torch.Tensor, rate: float,
 
 
 def res_block(p, x, t_emb, dtype, fused_gn: bool, skip=None,
-              drop=None) -> torch.Tensor:
+              drop=None, tp=None) -> torch.Tensor:
     """GN+SiLU+3x3 conv -> + time projection -> GN+SiLU (-> ``drop``, the
     training dropout) -> 3x3 conv -> + residual (1x1 conv where the width
     changes). ``skip`` is treated as concat([x, skip], -1) without
     materialising the concat."""
     parts = (x,) if skip is None else (x, skip)
-    in_ch = sum(part.shape[-1] for part in parts)
-    out_ch = p["Conv_1"]["weight"].shape[0]
-    hn = gn_silu(p["gn1"], parts if skip is not None else x, dtype, fused_gn)
+    hn = gn_silu(p["gn1"], parts if skip is not None else x, dtype, fused_gn,
+                 tp)
     if skip is None:
-        h = _conv(hn, p["Conv_0"]["weight"], p["Conv_0"]["bias"], dtype)
+        h = _conv(hn, p["Conv_0"]["weight"], p["Conv_0"]["bias"], dtype, tp)
     else:
-        h = _split_conv(hn, p["Conv_0"], dtype)
-    temb = _dense(F.silu(t_emb), p["Dense_0"], dtype)
+        h = _split_conv(hn, p["Conv_0"], dtype, tp)
+    temb = _dense(F.silu(t_emb), p["Dense_0"], dtype, tp)
     h = h + temb[:, None, None, :]
-    h = gn_silu(p["gn2"], h, dtype, fused_gn)
+    h = gn_silu(p["gn2"], h, dtype, fused_gn, tp)
     if drop is not None:
         h = drop(h)
-    h = _conv(h, p["Conv_1"]["weight"], p["Conv_1"]["bias"], dtype)
-    if in_ch == out_ch:
+    h = _conv(h, p["Conv_1"]["weight"], p["Conv_1"]["bias"], dtype, tp)
+    if "Conv_2" not in p:  # the width does not change
         if skip is not None:
             raise ValueError("skip input requires a channel-changing block")
         return h + x
     if skip is None:
-        return h + _conv(x, p["Conv_2"]["weight"], p["Conv_2"]["bias"], dtype)
-    return h + _split_conv(parts, p["Conv_2"], dtype)
+        return h + _conv(x, p["Conv_2"]["weight"], p["Conv_2"]["bias"], dtype,
+                         tp)
+    return h + _split_conv(parts, p["Conv_2"], dtype, tp)
 
 
-def _layer_norm(p, x, dtype) -> torch.Tensor:
+def _layer_norm(p, x, dtype, tp=None) -> torch.Tensor:
     """flax LayerNorm: float32 one-pass statistics clamped at 0, eps 1e-6,
     affine in float32, one rounding to ``dtype``."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
                       min=0.0)
-    mul = torch.rsqrt(var + 1e-6) * p["scale"].float()
-    return ((xf - mean) * mul + p["bias"].float()).to(dtype)
+    mul = torch.rsqrt(var + 1e-6) * _whole(tp, p["scale"]).float()
+    return ((xf - mean) * mul + _whole(tp, p["bias"]).float()).to(dtype)
 
 
 def cross_attention(p, x, context, num_heads: int, dtype,
-                    use_flash: bool) -> torch.Tensor:
+                    use_flash: bool, tp=None) -> torch.Tensor:
     """Residual multi-head cross-attention from the HW image tokens of ``x``
     (B, H, W, C) to ``context`` (B, S, E). ``use_flash=True`` runs the
     ``flash_attention`` kernel (float32 probabilities); ``False`` the two
     einsums, whose probabilities are rounded to v's dtype."""
     b, h, w, c = x.shape
     head_dim = c // num_heads
-    tokens_n = _layer_norm(p["LayerNorm_0"], x.reshape(b, h * w, c), dtype)
-    q = _dense(tokens_n, p["Dense_0"], dtype)
-    k = _dense(context, p["Dense_1"], dtype)
-    v = _dense(context, p["Dense_2"], dtype)
+    tokens_n = _layer_norm(p["LayerNorm_0"], x.reshape(b, h * w, c), dtype,
+                           tp)
+    q = _dense(tokens_n, p["Dense_0"], dtype, tp)
+    k = _dense(context, p["Dense_1"], dtype, tp)
+    v = _dense(context, p["Dense_2"], dtype, tp)
     q, k, v = (z.reshape(b, z.shape[1], num_heads, head_dim)
                for z in (q, k, v))
     if use_flash:
@@ -216,7 +243,7 @@ def cross_attention(p, x, context, num_heads: int, dtype,
                   / math.sqrt(head_dim))
         attn = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, h * w, c)
-    return x + _dense(out, p["Dense_3"], dtype).reshape(b, h, w, c)
+    return x + _dense(out, p["Dense_3"], dtype, tp).reshape(b, h, w, c)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,11 +268,14 @@ class UNet:
 
     def apply(self, params: Any, x: torch.Tensor, t, *labels,
               train: bool = False,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              tp=None) -> torch.Tensor:
         """eps_hat for NHWC ``x`` (B, H, W, C), ``t`` a scalar or (B,), one
         integer (B,) label per slot of ``num_classes``; float32 output.
         ``train=True`` applies the dropout, its masks drawn from
-        ``generator`` (a ``torch.Generator`` on x's device)."""
+        ``generator`` (a ``torch.Generator`` on x's device). ``tp``: the
+        layout of a tensor-parallel call, with ``params`` this rank's shard
+        (``parallel.tp.make_tp_apply``)."""
         p = params["params"]
         if x.dim() != 4:
             raise ValueError(f"expected NHWC input, got {tuple(x.shape)}")
@@ -270,16 +300,20 @@ class UNet:
             # batch-constant t: the time tower runs at batch 1 and the
             # (1, C) + (B, H, W, C) broadcast does the rest
             t = t[None]
-        t_emb = time_embedding(p["TimeEmbedding_0"], t, self.base_dim, dtype)
+        t_emb = time_embedding(p["TimeEmbedding_0"], t, self.base_dim, dtype,
+                               tp)
 
         context = None
         if self.num_classes:
             if len(labels) != len(self.num_classes):
                 raise ValueError(f"model takes {len(self.num_classes)} label "
                                  f"slots, got {len(labels)}")
-            embs = [F.embedding(torch.as_tensor(lab, device=x.device).long(),
-                                p[f"label_emb_{i}"]["embedding"].to(dtype))
-                    for i, lab in enumerate(labels)]
+            tables = [p[f"label_emb_{i}"]["embedding"]
+                      for i in range(len(labels))]
+            embs = [_layer(tp, tab, lambda i, tab=tab: F.embedding(
+                        i, tab.to(dtype)),
+                        torch.as_tensor(lab, device=x.device).long())
+                    for tab, lab in zip(tables, labels)]
             if self.cross_attn:
                 context = torch.stack(embs, dim=1)  # (B, n_slots, emb)
             else:
@@ -287,16 +321,17 @@ class UNet:
 
         def block(name, h, skip=None):
             return res_block(p[name], h, t_emb, dtype, self.fused_gn, skip,
-                             drop)
+                             drop, tp)
 
         def attend(name, h):
             if context is None:
                 return h
             return cross_attention(p[name], h, context, self.attn_heads,
-                                   dtype, self.flash_attn)
+                                   dtype, self.flash_attn, tp)
 
         n_levels = len(self.channel_mults) - 1
-        h = _conv(x, p["init_conv"]["weight"], p["init_conv"]["bias"], dtype)
+        h = _conv(x, p["init_conv"]["weight"], p["init_conv"]["bias"], dtype,
+                  tp)
         skips = []
         for i in range(n_levels):
             h = attend(f"down_attn_{i}", block(f"down_{i}", h))
@@ -309,8 +344,10 @@ class UNet:
 
         # output head: 1x1 conv as a matmul of the compute-dtype operands
         # with a float32 result that is never rounded to the compute dtype
-        w_out = p["out_conv"]["weight"][:, :, 0, 0].to(dtype).float()
-        out = h.float() @ w_out.t() + p["out_conv"]["bias"].float()
+        w_head = p["out_conv"]["weight"]
+        w_out = w_head[:, :, 0, 0].to(dtype).float()
+        out = _layer(tp, w_head, lambda h: h.float() @ w_out.t()
+                     + p["out_conv"]["bias"].float(), h)
         if padded:
             out = out[:, ph // 2:ph // 2 + orig_hw[0],
                       pw // 2:pw // 2 + orig_hw[1], :]

@@ -842,3 +842,19 @@ def test_eval_superdiff_and_ito_launches(tmp_path):
     out = entry.compose_images_ito(n_steps=2, out=str(tmp_path),
                                    overrides=EVAL_OV[:3])
     assert _launches() == n0 and out.is_cuda and out.shape == (9, 16, 16, 3)
+
+
+def test_expert_parallel_flagship_at_world_1_matches_entry_sample():
+    """parallel.sample_expert_parallel over NCCL at world 1 (expert 1 x
+    data 1): the three bf16 flagship experts through fused_dit_block, one
+    launch a block a step, against entry.sample on the same trees and
+    noise (bf16 held on the mean, 0.05, as the serving path is)."""
+    import _torch_parallel_ranks as R
+    from composable_diffusion_models_tpu_torch.parallel.mesh import run_ranks
+    trees = [convert.from_flax(convert.init_params(entry.FLAGSHIP, seed=i))
+             for i in range(entry.N_EXPERTS)]
+    x = torch.randn(64, 28, 28, 1, generator=torch.Generator().manual_seed(3))
+    got, = run_ranks(R.served_on_card, 1, trees, x, 4)
+    ref = entry.sample(trees, x, n_steps=4).cpu()
+    assert got["launches"] == 4 * entry.N_EXPERTS * 4
+    assert float((got["out"] - ref).abs().mean()) <= 0.05

@@ -107,10 +107,14 @@ def test_expert_stack_matches_jax():
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """device=None means the card: without one the entry point raises and
-    never runs on the CPU (the serving path's, and those of the latent,
-    2-D and evaluation scripts)."""
+    never runs on the CPU (the serving path's, those of the latent, 2-D
+    and evaluation scripts, and parallel/'s: make_expert_parallel_eps_fn,
+    sample_expert_parallel and dryrun_multichip, which start no rank)."""
     from composable_diffusion_models_tpu_torch import (eval_composition,
                                                        eval_superdiff)
+    from composable_diffusion_models_tpu_torch.parallel import dryrun
+    from composable_diffusion_models_tpu_torch.parallel import (
+        sample as psample)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     trees = [convert.from_flax(convert.init_params(entry.FLAGSHIP, seed=0))]
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -125,6 +129,15 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call(out=out)
     assert not any(tmp_path.iterdir())
+    for call in (lambda: psample.make_expert_parallel_eps_fn(
+                     entry.make_folded_apply(entry.FLAGSHIP), None, trees[0],
+                     torch.ones(1)),
+                 lambda: psample.sample_expert_parallel(
+                     trees, np.zeros((1, 28, 28, 1), np.float32), None,
+                     entry.FLAGSHIP),
+                 lambda: dryrun.dryrun_multichip(1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
@@ -153,14 +166,16 @@ def test_port_imports_nothing_of_jax():
     # latent slice's, the training path's, the DDPM samplers' and the
     # shapes gate's and NLL path's (data, models.unet, models.probe,
     # samplers, convert, eval, gate, entry, ops.kernels, ops.attention),
-    # the config-driven paths' and the evaluation scripts'
+    # the config-driven paths' and the evaluation scripts', and parallel/
     assert {PKG.name + "." + m for m in (
         "models.dit", "models.unet", "models.mlp", "models.probe",
         "models.embeddings", "ops.kernels", "ops.attention", "ops.pca",
         "ops.divergence", "ops._build", "compose", "experts", "samplers",
         "schedules", "convert", "entry", "train", "data", "gate", "eval",
         "checkpoint", "rng", "builders", "utils.config", "utils.viz",
-        "eval_composition", "eval_superdiff", "utils.summarize")} \
+        "eval_composition", "eval_superdiff", "utils.summarize",
+        "parallel", "parallel.mesh", "parallel.sample", "parallel.train",
+        "parallel.tp", "parallel.pp", "parallel.sp", "parallel.dryrun")} \
         <= set(mods)
     code = ("import sys\n"
             + "".join(f"sys.modules[{n!r}] = None\n" for n in _FORBIDDEN)
