@@ -23,8 +23,10 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     100); the bfloat16 kernels' fast GELU and sigmoid where they saturate
     (|x| around 10 and 80); ``fused_dit_block`` also at the shapes gate's
     DiT cells, (64, 64, 256) bf16, one 64-token image a block;
-    ``blend_eps`` also at the blends of phases 19 and 20, beside the device
-    time of an empty kernel launch (the floor under its bound); and every
+    ``blend_eps`` also at the blends of phases 19 and 20 and at phase 22's
+    ``eval_composition(op="avg")`` shape (2, 32, 64, 64, 3), beside the
+    device time of an empty kernel launch (the floor under its bound) and
+    of ``compose.weighted``'s ops; and every
     kernel at the new shapes of phases 24-27, timed beside its bound and
     the library call: ``fused_dit_block`` in bf16 at the frontier
     candidates' (256, 4, 384) with heads of 48 (the rows route) and (256,
@@ -228,7 +230,21 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     moved), the EP step's collectives on the data axis only;
     images/s, steps/s and the world's start-up time, which two ranks on
     one card make no speed-up;
-30. one ``kernels`` JSON line, then the result line.
+30. the command lines (``composable_diffusion_models_tpu_torch.scripts``),
+    each ``main(argv)`` called in this process without ``--cpu`` (so on the
+    card), at the presets' full widths with steps cut by overrides only:
+    ``train_image`` twice on ``colored_mnist_guided`` and ``superdiff``
+    OR over the two at 1000 timesteps; ``train_image`` twice on
+    ``mnist_image`` and ``compose_scores`` (em) over those; ``fit_pca``,
+    ``train_latent_2d`` and ``sample_latent``; ``train_image`` on
+    ``ito_cross_attention`` and ``compose_cfg`` on it (K6). Each call's
+    output is held bit for bit against the entry point it drives, called
+    directly on the same trees, seed and inputs (cuDNN in its
+    deterministic mode for the phase, so that training repeats), with
+    exact K3, K4 (+ split), K5 and K6 launches; then ``python -m ...
+    sample_latent`` in a subprocess: exit 0, the same PNG, and the plot
+    rule's ``skipped`` line where matplotlib is missing;
+31. one ``kernels`` JSON line, then the result line.
 
 Exits with code 2 and prints no result where there is no CUDA card.
 """
@@ -236,6 +252,8 @@ Exits with code 2 and prints no result where there is no CUDA card.
 from __future__ import annotations
 
 import contextlib
+import importlib
+import importlib.util
 import json
 import math
 import os
@@ -313,10 +331,13 @@ EM_N, EM_SIZE, EM_BATCH = 8192, 28, 64
 # 10), then ragged ones, K = 1 and 5
 BLEND_MAIN = (2, LATENT_BATCH, 2)
 BLEND_CONFIG = [(2, 64, 28, 28, 1), (2, 16, 10)]
+# eval_composition(op="avg")'s blend, its widest served shape: two 64 x 64
+# x 3 experts, 32 samples a combination (phase 22), float32
+BLEND_EVAL_AVG = (2, 32, 64, 64, 3)
 BLEND_SHAPES = [BLEND_MAIN, (3, BATCH, 28, 28, 1), (2, A_BATCH, 64, 64, 3)] \
-    + BLEND_CONFIG + [(3, 7, 5), (2, 1, 1), (1, 9, 33), (5, 1000, 3),
-                      (5, 64, 8)]
-BLEND_TIMED = BLEND_SHAPES[:5]
+    + BLEND_CONFIG + [BLEND_EVAL_AVG, (3, 7, 5), (2, 1, 1), (1, 9, 33),
+                      (5, 1000, 3), (5, 64, 8)]
+BLEND_TIMED = BLEND_SHAPES[:6]
 # matmul: (M, K, N). The codec's encode and decode at both presets, a wider
 # codec (64 components of 64 x 64 x 3 images) and its decode, the shapes of
 # the JAX package's own kernel test, odd ones, and one square
@@ -446,6 +467,13 @@ CC_TRAIN, CC_STEPS, CF_TRAIN, CF_PROBE = 200, 1000, 100, 100
 FG_CONFIGS, FG_TRAIN, FG_PROBE = ("unet64", "unet32"), 100, 100
 FR_CANDIDATES, FR_TRAIN = ("dit_p14_d384_l6", "dit_p7_d192_l6_h6"), 150
 CFG_BATCH, CIFAR_BATCH = 64, 64
+# phase 30: the command lines at the presets' widths. Training cut from the
+# presets' 4000 steps to CLI_TRAIN (train_latent_2d's to CLI_LATENT_TRAIN);
+# superdiff at the preset's 1000 timesteps with its batch 64 cut to
+# CLI_SD_BATCH; compose_cfg's 1000 DDIM steps cut to CLI_CFG_STEPS; the
+# rest at the presets' sizes (compose_scores: 50 E-M steps at batch 64;
+# sample_latent: 1000 steps at batch 64; fit_pca on 8192 images)
+CLI_TRAIN, CLI_LATENT_TRAIN, CLI_SD_BATCH, CLI_CFG_STEPS = 50, 100, 16, 200
 # phase 3 at those phases' new shapes: fused_dit_block at the frontier
 # candidates' bf16 launches (B, T, D, heads) (D 384: the rows route, heads
 # of 48; D 192 at 16 tokens) and the flagship's width at 16 tokens;
@@ -955,6 +983,19 @@ def check_latent_kernels(kernels, compose):
                     shape=list(shape), max_abs_err=err, ms=ms, dev_ms=dev,
                     plain_ms=plain, bound_ms=bms, bound_by=by,
                     library_ms=None))
+            elif shape == BLEND_EVAL_AVG and dtype == torch.float32:
+                # compose.weighted's four ops on the device: the yardstick
+                ops_dev = device_ms(lambda: compose.weighted(eps, w),
+                                    match="")
+                log(f"  blend_eps at eval_composition(avg)'s shape: device "
+                    f"{dev:.4f} ms against its bound {bms:.6f} ms "
+                    f"({dev / bms:.1f}x); compose.weighted's ops "
+                    f"{ops_dev:.4f} ms on the device")
+                rows[("blend_eps", dtype)]["eval_avg_shape"] = dict(
+                    shape=list(shape), max_abs_err=err, ms=ms, dev_ms=dev,
+                    plain_ms=plain, weighted_ms=ops_ms,
+                    weighted_dev_ms=ops_dev, bound_ms=bms, bound_by=by,
+                    library_ms=None)
         if dtype == torch.float32:
             # the floor under any launch: an empty kernel (torch's spin
             # kernel asked for no cycles), its device time from a trace
@@ -3542,6 +3583,200 @@ def parallel_paths(card, convert, entry, kernels, attention, x_init,
                       train.flatten(p)[1], train.flatten(init[e])[1])
     return launches
 
+CLI_OUT = os.path.join(SMOKE_OUT, "cli")
+CLI_KERNELS = ("groupnorm_silu", "groupnorm_silu_split", "blend_eps",
+               "matmul", "flash_attention")
+
+
+def cli_call(name: str, argv: list, entry, record: str, kernels,
+             attention) -> tuple:
+    """``scripts.<name>.main(argv)`` on the card, ``entry.<record>``
+    recorded. Returns (the recorded results, the launches, seconds)."""
+    module = importlib.import_module(
+        f"composable_diffusion_models_tpu_torch.scripts.{name}")
+    real, results = getattr(entry, record), []
+
+    def recorded(*a, **k):
+        results.append(real(*a, **k))
+        return results[-1]
+
+    reset_launches(kernels, attention)
+    t0 = time.perf_counter()
+    with mock.patch.object(entry, record, recorded):
+        rc = module.main(argv)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read_launches(kernels, attention)
+    if rc != 0:
+        fail(f"the {name} command line exited {rc}")
+    return results, counts, sec
+
+
+def same_leaves(label: str, got, ref) -> None:
+    """Bit for bit: tensors, or nested dicts / tuples of them."""
+    from composable_diffusion_models_tpu_torch import train
+    pa, la = train.flatten(got) if isinstance(got, dict) else ([], [got])
+    pb, lb = train.flatten(ref) if isinstance(ref, dict) else ([], [ref])
+    if pa != pb or not all(x.dtype == y.dtype and torch.equal(x, y)
+                           for x, y in zip(la, lb)):
+        fail(f"{label}: the command line's output is not the entry "
+             f"point's")
+
+
+def command_lines(card, entry, kernels, attention) -> dict:
+    """Phase 30. Returns each call's launches, keyed cli_<name>[_<tag>]."""
+    from composable_diffusion_models_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from composable_diffusion_models_tpu_torch.rng import Draws
+    shutil.rmtree(CLI_OUT, ignore_errors=True)
+    direct = os.path.join(CLI_OUT, "direct")
+    log(f"command lines on the card, in process, no --cpu ({card}); "
+        f"training cut to {CLI_TRAIN} steps (the presets' 4000), "
+        f"train_latent_2d to {CLI_LATENT_TRAIN}, superdiff's batch 64 to "
+        f"{CLI_SD_BATCH} (1000 timesteps), compose_cfg's 1000 DDIM steps "
+        f"to {CLI_CFG_STEPS}; cuDNN deterministic for the phase")
+    # without matplotlib (the card's machine) the plots are skipped; with
+    # it, train_latent_2d's latents scatter encodes the data once more
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    launches, took = {}, {}
+
+    def check(key, counts, want, sec):
+        want = {k: want.get(k, 0) for k in counts}
+        log(f"  {key}: {sec:.2f} s; launches {counts}")
+        if counts != want:
+            fail(f"{key} launched {counts}, expected {want}")
+        launches[key] = counts
+        took[key] = sec
+
+    # 1. two guided experts, then SUPERDIFF OR over them
+    steps = [f"--train.steps={CLI_TRAIN}"]
+    for name, classes in zip(("cli_a", "cli_b"), GUIDED_SUBSETS):
+        argv = ["--preset", "colored_mnist_guided", "--name", name,
+                "--classes", json.dumps(list(classes)), "--conditional",
+                "--out", CLI_OUT] + steps
+        (got,), counts, sec = cli_call("train_image", argv, entry,
+                                       "train_image", kernels, attention)
+        check(f"cli_train_image_guided_{name[-1]}", counts, {}, sec)
+        ref = entry.train_image("colored_mnist_guided", name,
+                                classes=classes, conditional=True,
+                                out=direct, overrides=steps)
+        same_leaves(f"train_image {name}", got[0], ref[0])
+        same_leaves(f"train_image {name} losses", got[1], ref[1])
+    sd = [f"--sample.batch_size={CLI_SD_BATCH}"]
+    (got,), counts, sec = cli_call(
+        "superdiff", ["--experts", '["cli_a","cli_b"]', "--labels",
+                      "[[3,3],[7,7]]", "--out", CLI_OUT] + sd, entry,
+        "sample_superdiff", kernels, attention)
+    fw = 2 * SD_T
+    check("cli_superdiff", counts, {"groupnorm_silu": 8 * fw,
+                                    "groupnorm_silu_split": 2 * fw}, sec)
+    trees = entry.load_named("colored_mnist_guided", ["cli_a", "cli_b"],
+                             CLI_OUT, sd)
+    ref = entry.sample_superdiff(
+        trees, Draws(42, "cuda").normal((CLI_SD_BATCH, 28, 28, 3)),
+        [[3, 3], [7, 7]], seed=42)
+    same_leaves("superdiff", got, ref)
+    log(f"  superdiff OR on the trained experts: |x| >= 1 at "
+        f"{float((got.abs() >= 1).float().mean()):.3f} of the outputs")
+
+    # 2. two mnist_image experts, then compose_scores over them
+    for name, classes in zip(("cli_a", "cli_b"), MNIST_SUBSETS):
+        argv = ["--name", name, "--classes", json.dumps(list(classes)),
+                "--out", CLI_OUT] + steps
+        (got,), counts, sec = cli_call("train_image", argv, entry,
+                                       "train_image", kernels, attention)
+        check(f"cli_train_image_mnist_{name[-1]}", counts, {}, sec)
+        ref = entry.train_image("mnist_image", name, classes=classes,
+                                out=direct, overrides=steps)
+        same_leaves(f"train_image mnist {name}", got[0], ref[0])
+    (got,), counts, sec = cli_call(
+        "compose_scores", ["--experts", '["cli_a","cli_b"]', "--out",
+                           CLI_OUT], entry, "compose_scores", kernels,
+        attention)
+    fw = 2 * PRESET_STEPS
+    check("cli_compose_scores", counts, {
+        "groupnorm_silu": 8 * fw, "groupnorm_silu_split": 2 * fw,
+        "blend_eps": PRESET_STEPS}, sec)
+    same_leaves("compose_scores", got, entry.compose_scores(
+        "mnist_image", ["cli_a", "cli_b"], out=CLI_OUT))
+
+    # 3. the PCA codec, a latent expert, sample_latent
+    (got,), counts, sec = cli_call("fit_pca", ["--out", CLI_OUT], entry,
+                                   "fit_pca", kernels, attention)
+    check("cli_fit_pca", counts, {}, sec)
+    ref = entry.fit_pca(out=direct)
+    same_leaves("fit_pca", got.components, ref.components)
+    lt = [f"--train.steps={CLI_LATENT_TRAIN}"]
+    (got,), counts, sec = cli_call("train_latent_2d", ["--out", CLI_OUT] + lt,
+                                   entry, "train_latent_2d", kernels,
+                                   attention)
+    check("cli_train_latent_2d", counts, {"matmul": 1 + has_mpl}, sec)
+    ref = entry.train_latent_2d(out=direct, overrides=lt)
+    same_leaves("train_latent_2d", got[0], ref[0])
+    (got,), counts, sec = cli_call("sample_latent", ["--out", CLI_OUT], entry,
+                                   "sample_latent", kernels, attention)
+    check("cli_sample_latent", counts, {"blend_eps": 1000, "matmul": 1}, sec)
+    tree = CheckpointManager(CLI_OUT, "mnist_latent2d").load(
+        "latent_expert", device="cuda")["params"]
+    ref = entry.sample_latent(
+        [tree], entry.load_pca(os.path.join(CLI_OUT, "pca")),
+        Draws(42, "cuda").normal((64, 2)), op="em", seed=42)
+    same_leaves("sample_latent latents", got[0], ref[0])
+    same_leaves("sample_latent images", got[1], ref[1])
+    png = os.path.join(CLI_OUT, "mnist_latent2d", "run_0", "results",
+                       "latent_decoded.png")
+    with open(png, "rb") as f:
+        in_process = f.read()
+
+    # 4. an ito_cross_attention expert, compose_cfg on it (K6)
+    argv = ["--preset", "ito_cross_attention", "--name", "cli_cfg",
+            "--conditional", "--out", CLI_OUT] + steps
+    (got,), counts, sec = cli_call("train_image", argv, entry,
+                                   "train_image", kernels, attention)
+    check("cli_train_image_ito", counts, {}, sec)
+    ref = entry.train_image("ito_cross_attention", "cli_cfg",
+                            conditional=True, out=direct, overrides=steps)
+    same_leaves("train_image ito_cross_attention", got[0], ref[0])
+    cs = [f"--sample.n_steps={CLI_CFG_STEPS}"]
+    (got,), counts, sec = cli_call(
+        "compose_cfg", ["--preset", "ito_cross_attention", "--name",
+                        "cli_cfg", "--color", "1", "--out", CLI_OUT] + cs,
+        entry, "compose_cfg", kernels, attention)
+    check("cli_compose_cfg", counts, {
+        "groupnorm_silu": 8 * CLI_CFG_STEPS,
+        "groupnorm_silu_split": 2 * CLI_CFG_STEPS,
+        "flash_attention": 5 * CLI_CFG_STEPS}, sec)
+    same_leaves("compose_cfg", got, entry.compose_cfg(
+        "ito_cross_attention", "cli_cfg", color=1, out=CLI_OUT,
+        overrides=cs))
+    torch.backends.cudnn.deterministic = cudnn_det
+
+    # 5. python -m in a subprocess: the same PNG, the plot rule
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m",
+         "composable_diffusion_models_tpu_torch.scripts.sample_latent",
+         "--out", CLI_OUT], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    sec = time.perf_counter() - t0
+    with open(png, "rb") as f:
+        same_png = f.read() == in_process
+    skipped = "latent_samples.png: matplotlib is not installed" in res.stdout
+    log(f"  python -m ...scripts.sample_latent in a subprocess: rc "
+        f"{res.returncode}, {sec:.1f} s; PNG the in-process run's: "
+        f"{same_png}; matplotlib installed: {has_mpl}; skipped line "
+        f"printed: {skipped}; stdout {res.stdout.strip()!r}")
+    if res.returncode != 0 or not same_png or skipped == has_mpl:
+        fail(f"the sample_latent subprocess: rc {res.returncode}, stderr "
+             f"{res.stderr[-2000:]}")
+    took["cli_subprocess"] = sec
+    shutil.rmtree(CLI_OUT, ignore_errors=True)
+    log("  phase 30 by call: " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in took.items()))
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3749,10 +3984,16 @@ def main() -> int:
     ep_launches = parallel_paths(card, convert, entry, kernels, attention,
                                  x_init, out)
     took["28-29"] = time.perf_counter() - t0
-    log("phases 18-29 took " + ", ".join(f"{k}: {v:.1f} s"
+
+    # 30. the command lines on the card
+    t0 = time.perf_counter()
+    cli_launches = command_lines(card, entry, kernels, attention)
+    by_path.update(cli_launches)
+    took[30] = time.perf_counter() - t0
+    log("phases 18-30 took " + ", ".join(f"{k}: {v:.1f} s"
                                          for k, v in took.items()))
 
-    # 30. the kernels line, then the result line. launches: each kernel's
+    # 31. the kernels line, then the result line. launches: each kernel's
     # count on the path that serves it (fused_dit_block: the DiT path;
     # short_seq_attention: fused_block=False; groupnorm_silu and its two-part
     # form groupnorm_silu_split (the same source; the JAX function it
@@ -3829,6 +4070,10 @@ def main() -> int:
             row["ddpm_path_shapes"] = [
                 {k: v for k, v in r.items() if k != "name"}
                 for r in ddpm_gn_rows if r["name"] == row["name"]]
+        if row["name"] in CLI_KERNELS:
+            # phase 30: every command line's launches, zeros included
+            row.setdefault("launches_by_path", {}).update(
+                {p: c[row["name"]] for p, c in cli_launches.items()})
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,10 +17,9 @@ The port's copy of ``scripts/_common.py``'s builders (``build_schedule``,
   flax_init`` (flax's distributions, not its bits) and returns a UNet's
   tree in the layout ``UNet.apply`` reads (``convert.unet_torch_layout``).
 
-Not ported: ``add_runtime_flags`` / ``apply_runtime_flags`` (the argparse
-CLIs), and ``require_accelerator`` with its stall watchdog, which probe and
-guard a remote TPU connection; the port's entry points raise at once where
-there is no CUDA card (``resolve_device``).
+The runtime flags (``add_runtime_flags``, ``apply_runtime_flags``,
+``require_accelerator``) are in ``scripts/_common.py`` of this package,
+with the command lines that take them.
 """
 
 from __future__ import annotations
@@ -74,10 +73,10 @@ def build_model(cfg: Config, fused_gn: bool = False,
     raise ValueError(f"unknown model kind {m.kind!r}")
 
 
-def build_dataset(cfg: Config, key, device="cpu"
-                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """Config-driven wrapper over the data registry (data.get_dataset) on
-    ``device``: returns (images, labels_tuple)."""
+def dataset_kwargs(cfg: Config) -> dict:
+    """The keyword arguments of ``data.get_dataset`` for ``cfg.data``, as
+    :func:`build_dataset` passes them (``scripts/eval_nll.py`` builds its
+    scored set so)."""
     d = cfg.data
     kw = {
         "mnist": dict(classes=d.classes, data_dir=d.data_dir),
@@ -100,7 +99,16 @@ def build_dataset(cfg: Config, key, device="cpu"
     }.get(d.dataset)
     if kw is None:
         raise ValueError(f"unknown dataset {d.dataset!r}")
-    out = data_lib.get_dataset(d.dataset, key, d.n, device=device, **kw)
+    return kw
+
+
+def build_dataset(cfg: Config, key, device="cpu"
+                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Config-driven wrapper over the data registry (data.get_dataset) on
+    ``device``: returns (images, labels_tuple)."""
+    d = cfg.data
+    out = data_lib.get_dataset(d.dataset, key, d.n, device=device,
+                               **dataset_kwargs(cfg))
     return out[0], tuple(out[1:]) if d.dataset != "toy2d" else ()
 
 

@@ -373,7 +373,9 @@ def sample_latent(params_list: Sequence[Any], pca: pca_codec.PCA, z_init,
                   weights: Optional[Sequence[float]] = None, xi: float = 1.0,
                   fused_blend: bool = True, seed: int = 0,
                   noise: Optional[torch.Tensor] = None,
-                  probes: Optional[torch.Tensor] = None, device=None
+                  probes: Optional[torch.Tensor] = None, device=None,
+                  model: ScoreMLP = SHAPES_LATENT_MLP,
+                  schedule: VPSchedule = VPSchedule()
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Composes latent ``ScoreMLP`` experts under one of four operators and
     decodes through the PCA: returns ``(z, images)``, the (B, k) latents and
@@ -397,18 +399,19 @@ def sample_latent(params_list: Sequence[Any], pca: pca_codec.PCA, z_init,
     seeded with ``seed`` on the device, unless ``noise=`` (n_steps, B, k) or
     ``probes=`` (n_steps, 2, B, k) replace them. The images are square
     with one channel: the edge is the square root of the codec's width.
-    ``device=None`` is the CUDA card (raises without one)."""
+    ``device=None`` is the CUDA card (raises without one). ``model``: the
+    experts' configuration (only its depth shapes the forward);
+    ``schedule``: the VP schedule of both the experts' training and this
+    sampling (the presets' ``stable`` kind by default)."""
     if op not in LATENT_OPS:
         raise ValueError(f"op must be one of {LATENT_OPS}, got {op!r}")
     dev = resolve_device(device)
-    model = SHAPES_LATENT_MLP
     params = load_latent_experts(params_list, dev)
     if op in ("avg", "ito") and len(params) != 2:
         raise ValueError(f"op {op!r} composes exactly 2 experts, got "
                          f"{len(params)}")
     pca = pca.to(dev)
     z = torch.as_tensor(z_init, dtype=torch.float32).to(dev)
-    schedule = VPSchedule()
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     if op in ("ddim", "em"):
@@ -609,7 +612,8 @@ def sample_gray_color(shape_params: Any, color_params: Any, x_init,
                       fused_gn: bool = True, device=None,
                       dtype: torch.dtype = torch.float32,
                       shape_model: UNet = GRAY_UNET,
-                      color_model: UNet = SHAPES_UNET) -> torch.Tensor:
+                      color_model: UNet = SHAPES_UNET,
+                      schedule: VPSchedule = VPSchedule()) -> torch.Tensor:
     """The mixed-channel composition of ``scripts/compose_images_ddim.py``:
     a 1-channel shape expert that sees ``experts.rgb_to_gray(x)`` (unit-norm
     with ``gray_protocol="luma_norm"``) and a 3-channel color expert that
@@ -622,7 +626,8 @@ def sample_gray_color(shape_params: Any, color_params: Any, x_init,
     exactly P eps). Returns an fp32 (B, H, W, 3) batch.
     ``shape_labels``, ``color_labels``: (B,) class labels. ``fused_gn``,
     ``dtype`` (the preset's is float32), ``device`` as in
-    :func:`sample_shapes`; the models are narrower for CPU tests only."""
+    :func:`sample_shapes`; the models are narrower for CPU tests only.
+    ``schedule``: the preset's ``VPSchedule(kind=cfg.schedule.kind)``."""
     if op not in ("avg", "proj"):
         raise ValueError(f"op must be 'avg' or 'proj', got {op!r}")
     if gray_protocol not in GRAY_PROTOCOLS:
@@ -651,7 +656,7 @@ def sample_gray_color(shape_params: Any, color_params: Any, x_init,
                                      e_color]), w)
 
     x = torch.as_tensor(x_init, dtype=torch.float32).to(dev)
-    return ddim(eps_fn, VPSchedule(), x, n_steps)
+    return ddim(eps_fn, schedule, x, n_steps)
 
 
 def train_experts(steps: int = 12000, batch_size: int = 256, lr: float = 2e-4,

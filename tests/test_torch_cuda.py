@@ -858,3 +858,29 @@ def test_expert_parallel_flagship_at_world_1_matches_entry_sample():
     ref = entry.sample(trees, x, n_steps=4).cpu()
     assert got["launches"] == 4 * entry.N_EXPERTS * 4
     assert float((got["out"] - ref).abs().mean()) <= 0.05
+
+
+def test_compose_scores_command_line_is_its_entry_point(tmp_path):
+    """``scripts.compose_scores.main`` without ``--cpu``: on the card, the
+    bits of ``entry.compose_scores`` on the same experts and seed, with one
+    K3 launch a step and 8 + 2 K4 launches a forward."""
+    from composable_diffusion_models_tpu_torch.scripts import compose_scores
+    ov = ["--model.base_dim=8", "--sample.n_steps=3",
+          "--sample.batch_size=4"]
+    _saved_experts(tmp_path, "mnist_image", ov, ["expert_a", "expert_b"])
+    got = []
+    real = entry.compose_scores
+
+    def recorded(*a, **k):
+        got.append(real(*a, **k))
+        return got[-1]
+
+    n0 = _launches()
+    with mock.patch.object(entry, "compose_scores", recorded):
+        assert compose_scores.main(["--out", str(tmp_path), "--seed", "3"]
+                                   + ov) == 0
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(n0, _launches())) == (48, 12, 3)
+    ref = entry.compose_scores("mnist_image", ["expert_a", "expert_b"],
+                               seed=3, out=str(tmp_path), overrides=ov)
+    assert got[0].is_cuda and torch.equal(got[0], ref)

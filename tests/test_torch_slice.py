@@ -166,7 +166,8 @@ def test_port_imports_nothing_of_jax():
     # latent slice's, the training path's, the DDPM samplers' and the
     # shapes gate's and NLL path's (data, models.unet, models.probe,
     # samplers, convert, eval, gate, entry, ops.kernels, ops.attention),
-    # the config-driven paths' and the evaluation scripts', and parallel/
+    # the config-driven paths' and the evaluation scripts', parallel/, and
+    # the command lines of scripts/
     assert {PKG.name + "." + m for m in (
         "models.dit", "models.unet", "models.mlp", "models.probe",
         "models.embeddings", "ops.kernels", "ops.attention", "ops.pca",
@@ -175,8 +176,20 @@ def test_port_imports_nothing_of_jax():
         "checkpoint", "rng", "builders", "utils.config", "utils.viz",
         "eval_composition", "eval_superdiff", "utils.summarize",
         "parallel", "parallel.mesh", "parallel.sample", "parallel.train",
-        "parallel.tp", "parallel.pp", "parallel.sp", "parallel.dryrun")} \
-        <= set(mods)
+        "parallel.tp", "parallel.pp", "parallel.sp", "parallel.dryrun",
+        "scripts", "scripts._common", "scripts.train_image",
+        "scripts.sample_image", "scripts.compose_scores", "scripts.superdiff",
+        "scripts.layout_compose", "scripts.compose_bbox",
+        "scripts.compose_images_ddim", "scripts.compose_images_ito",
+        "scripts.compose_cfg", "scripts.compose_cifar", "scripts.train_vae",
+        "scripts.compose_latent_vae", "scripts.fit_pca",
+        "scripts.train_latent_2d", "scripts.sample_latent",
+        "scripts.latent_shape_experts", "scripts.superposition_2d",
+        "scripts.eval_nll", "scripts.eval_composition",
+        "scripts.eval_superdiff", "scripts.summarize_evals",
+        "scripts.quality_gate_flagship", "scripts.quality_gate_shapes",
+        "scripts.frontier_sweep", "scripts.visualize_forward",
+        "scripts.visualize_composition_latent")} <= set(mods)
     code = ("import sys\n"
             + "".join(f"sys.modules[{n!r}] = None\n" for n in _FORBIDDEN)
             + "import importlib\n"
