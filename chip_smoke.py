@@ -33,7 +33,11 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     16, 192) with 6 heads, and at (256, 16, 256); ``short_seq_attention``
     at heads of 48; ``groupnorm_silu`` and its two-part form at the CIFAR
     experts' float32 levels and the unet32 gate's bf16 ones;
-    ``flash_attention`` at heads of 160 and 256;
+    ``flash_attention`` at heads of 160 and 256; and at the profilers'
+    shapes (phase 31), timed beside the bound and the library call:
+    ``fused_dit_block`` and ``short_seq_attention`` at (768, 16, 256) with
+    8 heads in bf16, ``groupnorm_silu`` at (384, 28, 28, 64), (384, 14,
+    14, 128), (384, 7, 7, 256) and its two-part form at the up blocks, bf16;
  4. the DiT path: 3 composed ``dit_p14_d256_l4`` experts (random weights
     from a seed), 50-step DDIM, batch 2048, bf16, through
     ``entry.sample``: finite output, exactly 600 ``fused_dit_block``
@@ -89,11 +93,12 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     mask, batch 64, 100 timesteps (a cut for time);
 13. the bbox composition (``entry.sample_ancestral``): three
     ``SHAPES_UNET`` experts, 64 x 64 x 3, float32, weights (1, 1, 1), the
-    ``shapes_bbox`` preset's 500 timesteps, batch 4 (the script's default)
+    ``shapes_bbox`` preset's 500 timesteps cut to 250, batch 4 (the
+    script's default)
     and one timed run at batch 64;
 14. gray + color DDIM (``entry.sample_gray_color``): a 1-channel and a
     3-channel ``unet64``, 64 x 64, batch 128, float32, the ``shapes_ddim``
-    preset's 200 steps cut to 100, ``op="avg"`` (white) and ``op="proj"``
+    preset's 200 steps cut to 50, ``op="avg"`` (white) and ``op="proj"``
     (luma_norm);
 15. the DDIM family on path A's two bf16 experts, batch 128, 20 steps
     each: eta = 1, x0 and v prediction, one corrector step below t = 0.5,
@@ -166,7 +171,8 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
 22. ``eval_composition.eval_composition`` on shapes with holdout (2, 2): a
     gray (unit-norm luma) and an RGB ``unet64`` expert and the probe
     trained once, then one call per operator (``avg``, ``cfg``, ``proj``,
-    ``ito``; 32 samples a combination): exactly 8 + 2 K4 launches per
+    ``ito``; 32 samples a combination, 25 steps, 10 under ``ito``):
+    exactly 8 + 2 K4 launches per
     expert forward (none under ``ito``) and one ``blend_eps`` a step under
     ``avg``; the reported joint accuracies; the held-out combination of
     ``avg``, ``cfg`` and ``proj`` as a path of 11-15 (the plain path, a
@@ -174,7 +180,8 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     (whose gradient launches nothing) counted;
 23. ``eval_superdiff.eval_superdiff``'s mixture protocol (two
     unconditional colored-MNIST ``unet64`` experts, a digit probe; OR, the
-    AND heuristic and the rigorous AND at T 1000, 256 samples: exactly 8 +
+    AND heuristic and the rigorous AND at T 250 (the script's 1000, cut
+    for time), 256 samples: exactly 8 +
     2 K4 launches per forward; the per-class histogram and half balance
     reported), its OR job on the trained experts (read from the
     protocol's cache) at batch 256 before the clip: exact launches,
@@ -244,7 +251,19 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     exact K3, K4 (+ split), K5 and K6 launches; then ``python -m ...
     sample_latent`` in a subprocess: exit 0, the same PNG, and the plot
     rule's ``skipped`` line where matplotlib is missing;
-31. one ``kernels`` JSON line, then the result line.
+31. the profilers (``scripts.profile_unet``, ``scripts.profile_dit``,
+    ``main(argv)`` in this process without ``--cpu``, at the scripts'
+    widths; rows of 10 chained calls and 2 sampler rounds of 1 call, cut
+    for time) print their tables: every DDIM call of profile_unet with
+    exactly 1200 + 300 K4 launches, every sampler call of profile_dit with
+    exactly 1200 ``fused_dit_block`` launches under FUSED_BLOCK, 1200
+    ``short_seq_attention`` under PALLAS_ATTN and none under the other
+    variants (read on the host around each call, no sync added); one
+    FUSED_BLOCK and one PALLAS_ATTN forward at the script's widths with
+    every launch against its plain version; then ``python -m
+    ...scripts.bench_dit_config`` in a subprocess: exit 0, its JSON rows
+    with the script's keys and the analytic GFLOP per image;
+32. one ``kernels`` JSON line, then the result line.
 
 Exits with code 2 and prints no result where there is no CUDA card.
 """
@@ -367,12 +386,13 @@ TRAIN_STEPS, TRAIN_BATCH, PROBE_STEPS, GATE_SAMPLES = 300, 256, 500, 256
 PROFILE_TRAIN_STEPS = 20
 # discrete-DDPM paths: colored_mnist_guided (batch 64 of 28 x 28 x 3, 1000
 # timesteps; SD_CUT for the cases cut for time), shapes_bbox (64 x 64 x 3,
-# 500 timesteps, batch 4 and a timed batch 64); the gray + color DDIM of
-# shapes_ddim (batch 128, its 200 steps cut to GC_STEPS for time); the DDIM
-# family on path A's experts
+# its 500 timesteps cut to BBOX_T for phase 31's time, batch 4 and a timed
+# batch 64); the gray + color DDIM of shapes_ddim (batch 128, its 200 steps
+# cut to GC_STEPS for time: 100 until phase 31 came); the DDIM family on
+# path A's experts
 SD_BATCH, SD_T, SD_CUT = 64, 1000, 100
-BBOX_BATCH, BBOX_BATCH_TIMED, BBOX_T = 4, 64, 500
-GC_BATCH, GC_STEPS, FAM_STEPS = 128, 100, 20
+BBOX_BATCH, BBOX_BATCH_TIMED, BBOX_T = 4, 64, 250
+GC_BATCH, GC_STEPS, FAM_STEPS = 128, 50, 20
 PROFILE_STEPS, UNFUSED_STEPS = 5, 20
 # the shapes gate (phase 16): scripts/quality_gate_shapes.py's protocol cut
 # to the phase's time: its 8192 shapes of 64 x 64 x 3 (made on the card),
@@ -437,19 +457,20 @@ GN_DDPM_SPLIT = [((SD_BATCH, 14, 14), (256, 128)),
 # shapes, holdout (2, 2), 32 samples a combination, a gray (luma_norm) and
 # an RGB unet64 expert: the preset's 4000 training steps cut to EC_TRAIN,
 # the probe's 1200 to EC_PROBE, its 200 steps to EC_STEPS (EC_ITO_STEPS
-# under ito, whose jvps cost 7x a step). Phase 23:
-# eval_superdiff's mixture protocol at T 1000 (its 12000 training and 2000
-# probe steps cut to EV_TRAIN and EV_PROBE; the kernel path held to the
-# plain path on the OR job at EV_BATCH, before the clip), compose_images_ito
+# under ito, whose jvps cost 7x a step; 50 and 20 until phase 31 needed the
+# time). Phase 23: eval_superdiff's mixture protocol with its T 1000 cut to
+# EV_T (for phase 31's time) and its 12000 training and 2000 probe steps to
+# EV_TRAIN and EV_PROBE; the kernel path held to the plain path on the OR
+# job at EV_BATCH, before the clip), compose_images_ito
 # on phase 22's experts (its 1000 steps cut to CI_STEPS) and
 # summarize_evals
 LT_STEPS, SP_STEPS = 1000, 1000
 LT_HOLDOUTS = {"latent_a": "((2,0),(2,1),(2,2))",
                "latent_b": "((0,0),(0,1),(0,2))"}
-EC_TRAIN, EC_PROBE, EC_STEPS, EC_ITO_STEPS, EC_SAMPLES = 300, 300, 50, 20, 32
+EC_TRAIN, EC_PROBE, EC_STEPS, EC_ITO_STEPS, EC_SAMPLES = 300, 300, 25, 10, 32
 EC_OPS = ("avg", "cfg", "proj", "ito")
 EC_CG_STEPS = 10
-EV_TRAIN, EV_PROBE = 300, 300
+EV_TRAIN, EV_PROBE, EV_T = 300, 300, 250
 CI_STEPS = 10
 # phases 24-27, each at its script's published widths, with training and
 # probe steps cut for time and nothing else (the script's value printed
@@ -490,6 +511,26 @@ GN_UNET32 = [(GATE_SAMPLES, 28, 28, 32), (GATE_SAMPLES, 14, 14, 64),
              (GATE_SAMPLES, 7, 7, 128), ((GATE_SAMPLES, 14, 14), (128, 64)),
              ((GATE_SAMPLES, 28, 28), (64, 32))]
 FA_WIDE_D = (160, 256)
+# phase 31: the three profilers at the scripts' widths. profile_dit: the
+# 16-token DiT (patch 7, dim 256, depth 8, 8 heads), batch 768, 3 bf16
+# experts, 50-step DDIM; profile_unet: the UNet of base 64 at 28 x 28 x 1,
+# batch 384, 3 experts; bench_dit_config: p7_d256_l6 at batch 256, 512 and
+# 1024. Cut for time (at the scripts' defaults the phase took 112.4 s):
+# 10 of the scripts' 100 chained calls a row, bench_dit_config's 3 timed
+# calls a batch size to 1, and profile_dit's sampler A/B from 3 rounds of
+# 3 calls a variant to PROFILE_ROUNDS of PROFILE_CALLS; never a width
+PROFILE_DIT_ARGV = PROFILE_UNET_ARGV = ["--reps", "10"]
+BENCH_ARGV = ["--iters", "1"]
+PROFILE_ROUNDS, PROFILE_CALLS = 2, 1
+PROFILE_DIT = dict(patch=7, dim=256, depth=8, n_heads=8, batch=768)
+PROFILER_EXPERTS, PROFILER_DDIM_STEPS = 3, 50
+# phase 3 at their shapes: (B, T, D, heads) of profile_dit's fused_dit_block
+# and short_seq_attention launches; profile_unet's groupnorm_silu levels and
+# the two-part form at its up blocks, bf16
+K_PROFILE = (PROFILE_DIT["batch"], 16, PROFILE_DIT["dim"],
+             PROFILE_DIT["n_heads"])
+GN_PROFILE = [(384, 28, 28, 64), (384, 14, 14, 128), (384, 7, 7, 256),
+              ((384, 14, 14), (256, 128)), ((384, 28, 28), (128, 64))]
 
 
 def log(msg: str) -> None:
@@ -1830,7 +1871,8 @@ def ddpm_paths(card, convert, entry, unet, kernels, attention,
             noise=noise[:, :b] if n == BBOX_T else None, **kw)
     launches["ancestral"] = k4_path(
         card, f"bbox composition (3 experts, weights (1, 1, 1), batch "
-        f"{BBOX_BATCH}, {BBOX_T} timesteps, float32)", run_bbox, 3 * BBOX_T,
+        f"{BBOX_BATCH}, {BBOX_T} timesteps (the preset's 500 cut for time), "
+        f"float32)", run_bbox, 3 * BBOX_T,
         BBOX_BATCH, BBOX_T, (BBOX_BATCH, 64, 64, 3), kernels, attention, unet)
     sync_free("ancestral", lambda: run_bbox(n=2))
     run_bbox(n=2, b=BBOX_BATCH_TIMED)
@@ -2727,18 +2769,18 @@ def superdiff_eval_and_ito(card, entry, kernels, attention,
     sd_out = os.path.join(SMOKE_OUT, "superdiff_eval")
     reset_launches(kernels, attention)
     rep, sec = timed(lambda: es.eval_superdiff(
-        protocol="mixture", T=SD_T, train_steps=EV_TRAIN,
+        protocol="mixture", T=EV_T, train_steps=EV_TRAIN,
         probe_steps=EV_PROBE, n_samples=EV_BATCH, out=sd_out))
     counts = read_launches(kernels, attention)
-    forwards = 3 * 2 * SD_T
+    forwards = 3 * 2 * EV_T
     want = dict.fromkeys(counts, 0)
     want.update(groupnorm_silu=8 * forwards, groupnorm_silu_split=2 * forwards)
     log(f"eval_superdiff mixture (colored MNIST 28 x 28 x 3, 8192 digits; two "
         f"unconditional unet64 experts on {{0-4}} and {{5-9}}, base 64, "
-        f"batch 256, DDPMSchedule(1000), EMA 0.999; the script's 12000 steps "
-        f"cut to {EV_TRAIN}, its probe's 2000 to {EV_PROBE}; OR, the AND "
-        f"heuristic and the rigorous AND at T {SD_T}, {EV_BATCH} samples "
-        f"each): "
+        f"batch 256, DDPMSchedule({EV_T}), EMA 0.999; the script's 12000 "
+        f"steps cut to {EV_TRAIN}, its probe's 2000 to {EV_PROBE}; OR, the "
+        f"AND heuristic and the rigorous AND at T {EV_T} (the script's "
+        f"1000), {EV_BATCH} samples each): "
         f"{sec:.1f} s ({card}); launches {counts}")
     for name, row in rep["ops"].items():
         log(f"  {name}: frac_expert_a {row['frac_expert_a']:.3f}, balance "
@@ -2754,7 +2796,7 @@ def superdiff_eval_and_ito(card, entry, kernels, attention,
         sd_out, f"cache_mixture_expert{i}_*.pt"))[0], map_location="cuda",
         weights_only=True) for i in range(2)]
 
-    def run(n=SD_T, fused_gn=True):
+    def run(n=EV_T, fused_gn=True):
         fn = es.mixture_stack(params, 64, n, "cuda", fused_gn)
         (_, job), = es.mixture_jobs(fn, DDPMSchedule(num_timesteps=n),
                                     EV_BATCH, [1.0], "cuda")[:1]
@@ -2765,15 +2807,15 @@ def superdiff_eval_and_ito(card, entry, kernels, attention,
     # is held where nothing clips or saturates: the two experts' eps stack
     # at the middle timestep, on the job's own initial noise
     label = (f"eval_superdiff mixture OR job on the trained experts (batch "
-             f"{EV_BATCH}, {SD_T} timesteps, float32, before the clip)")
+             f"{EV_BATCH}, {EV_T} timesteps, float32, before the clip)")
     run(n=2)  # warm-up
     reset_launches(kernels, attention)
     out, sec = timed(run)
     counts = read_launches(kernels, attention)
     want = dict.fromkeys(counts, 0)
-    want.update(groupnorm_silu=8 * 2 * SD_T, groupnorm_silu_split=2 * 2 * SD_T)
+    want.update(groupnorm_silu=8 * 2 * EV_T, groupnorm_silu_split=2 * 2 * EV_T)
     log(f"{label}: {tuple(out.shape)} in {sec:.3f} s = "
-        f"{sec / SD_T * 1e3:.3f} ms/step ({card}); launches {counts}; |x| >= "
+        f"{sec / EV_T * 1e3:.3f} ms/step ({card}); launches {counts}; |x| >= "
         f"1 at {float((out.abs() >= 1).float().mean()):.3f} of the elements, "
         f"largest |x| {float(out.abs().max()):.4g}")
     if counts != want or not bool(torch.isfinite(out).all()) or \
@@ -2783,9 +2825,9 @@ def superdiff_eval_and_ito(card, entry, kernels, attention,
     x = es.start(entry._subkey(0, 50), (EV_BATCH, 28, 28, 3), None,
                  "cuda")[0]
     hold_eps("eval_superdiff mixture, the two experts' eps stack",
-             es.mixture_stack(params, 64, SD_T, "cuda", True),
-             es.mixture_stack(params, 64, SD_T, "cuda", False), x,
-             SD_T // 2, 1e-5)
+             es.mixture_stack(params, 64, EV_T, "cuda", True),
+             es.mixture_stack(params, 64, EV_T, "cuda", False), x,
+             EV_T // 2, 1e-5)
     sync_free("eval_superdiff mixture OR job", lambda: run(n=2))
 
     mgr = CheckpointManager(SMOKE_OUT, "shapes_ddim")
@@ -3263,25 +3305,33 @@ def k1_blocks_held(label: str, run, kernels, dit, dtype) -> None:
     ``fused_dit_block`` launch also computed by its plain version on the
     same inputs; each block's output is held at K1's bar (float32 2e-4,
     bf16 4 ulps, of that output's scale)."""
-    errs, orig = [], dit.fused_dit_block
+    launches_held(label, run, dit, "fused_dit_block",
+                  kernels.fused_dit_block_ref, 2e-4, dtype)
+
+
+def launches_held(label: str, run, module, name: str, ref, fp32_tol: float,
+                  dtype) -> None:
+    """Runs ``run()`` with every call of ``module.name`` (a kernel's
+    wrapper) also computed by its plain version ``ref`` on the same inputs;
+    each output is held at the kernel's bar (float32 ``fp32_tol``, bf16 4
+    ulps, of that output's scale)."""
+    errs, orig = [], getattr(module, name)
 
     def both(*args):
         got = orig(*args)
-        ref = kernels.fused_dit_block_ref(*args)
-        errs.append((max_err(got, ref), tolerance(dtype, ref, 2e-4),
-                     float(ref.float().abs().max())))
+        want = ref(*args)
+        errs.append((max_err(got, want), tolerance(dtype, want, fp32_tol),
+                     float(want.float().abs().max())))
         return got
-    with mock.patch.object(dit, "fused_dit_block", both), \
-            torch.inference_mode():
+    with mock.patch.object(module, name, both), torch.inference_mode():
         run()
     torch.cuda.synchronize()
-    log(f"  {label}: each of the {len(errs)} blocks against K1's plain "
-        f"version on the trained weights: max_abs_err "
+    log(f"  {label}: each of the {len(errs)} {name} launches against its "
+        f"plain version: max_abs_err "
         + ", ".join(f"{e:.2e}" for e, _, _ in errs) + " at output scales "
         + ", ".join(f"{sc:.3g}" for _, _, sc in errs))
     if not errs or any(e > tol for e, tol, _ in errs):
-        fail(f"{label}: a block of the served expert disagrees with K1's "
-             f"plain version")
+        fail(f"{label}: a {name} launch disagrees with its plain version")
 
 
 # ---------------------------------------------------------- phases 28-29
@@ -3778,6 +3828,178 @@ def command_lines(card, entry, kernels, attention) -> dict:
     return launches
 
 
+def check_profile_kernels(kernels) -> dict:
+    """Phase 3 at the profilers' shapes (K_PROFILE, GN_PROFILE). Returns
+    {kernel: [rows]} for the JSON line."""
+    gn = check_ddpm_gn_shapes(kernels, GN_PROFILE, torch.bfloat16,
+                              "profile_unet", 31)
+    return {"fused_dit_block": [k1_at(kernels, *K_PROFILE)],
+            "short_seq_attention": [k2_at(kernels, *K_PROFILE)],
+            "groupnorm_silu": [r for r in gn if r["name"] == "groupnorm_silu"],
+            "groupnorm_silu_split": [r for r in gn if r["name"]
+                                     == "groupnorm_silu_split"]}
+
+
+@contextlib.contextmanager
+def launches_per_call(module, name: str, kernels, attention, record: list):
+    """Patches ``module.name`` so that each call appends the launches it
+    made, read on the host before and after it: a wrapper counts a launch
+    as it enqueues it, so no sync is added to the timed calls."""
+    orig = getattr(module, name)
+
+    def run(*args, **kw):
+        before = read_launches(kernels, attention)
+        out = orig(*args, **kw)
+        after = read_launches(kernels, attention)
+        record.append({k: after[k] - before[k] for k in after})
+        return out
+    with mock.patch.object(module, name, run):
+        yield
+
+
+def profilers(card, dit, kernels, attention) -> dict:
+    """Phase 31. Returns the launches of each profiler's run and of one
+    sampler call of each launching variant, keyed profile_*."""
+    from composable_diffusion_models_tpu_torch import entry, rng, samplers
+    from composable_diffusion_models_tpu_torch.scripts import (profile_dit,
+                                                               profile_unet)
+    log(f"the profilers on the card, in process, no --cpu ({card}): "
+        f"profile_unet {PROFILE_UNET_ARGV or 'at its defaults'}, "
+        f"profile_dit {PROFILE_DIT_ARGV or 'at its defaults'} (sampler "
+        f"rounds {PROFILE_ROUNDS} x {PROFILE_CALLS} calls, the script's "
+        f"{profile_dit.ROUNDS} x {profile_dit.CALLS}); then "
+        f"bench_dit_config {BENCH_ARGV or 'at its defaults'} in a "
+        f"subprocess")
+    launches, took = {}, {}
+    zero = {k: 0 for k in read_launches(kernels, attention)}
+    forwards = PROFILER_EXPERTS * PROFILER_DDIM_STEPS
+
+    def run(name, module, argv) -> list:
+        calls = []
+        reset_launches(kernels, attention)
+        t0 = time.perf_counter()
+        with launches_per_call(samplers, "ddim", kernels, attention, calls):
+            rc = module.main(argv)
+        torch.cuda.synchronize()
+        took[name] = time.perf_counter() - t0
+        launches[name] = read_launches(kernels, attention)
+        log(f"  {name}: {took[name]:.1f} s; launches {launches[name]}")
+        if rc != 0:
+            fail(f"{name} exited {rc}")
+        return calls
+
+    # profile_unet: its DDIM batch (one warm call, three timed) launches
+    # 8 + 2 K4 a forward; every row of its table runs the UNet's kernels
+    calls = run("profile_unet", profile_unet, PROFILE_UNET_ARGV)
+    want = {**zero, "groupnorm_silu": 8 * forwards,
+            "groupnorm_silu_split": 2 * forwards}
+    log(f"  profile_unet: launches per DDIM call {calls}")
+    if len(calls) != 4 or any(c != want for c in calls):
+        fail(f"profile_unet's DDIM calls launched {calls}, expected 4 x "
+             f"{want}")
+    launches["profile_unet_ddim_call"] = calls[0]
+    if any(launches["profile_unet"][k] for k in zero
+           if k not in ("groupnorm_silu", "groupnorm_silu_split")):
+        fail("profile_unet launched a kernel off its UNet")
+
+    # profile_dit: every sampler call (one warm call of each variant, then
+    # the rounds), exact: K1 1200 under FUSED_BLOCK, K2 1200 under
+    # PALLAS_ATTN, nothing under the others
+    with mock.patch.object(profile_dit, "ROUNDS", PROFILE_ROUNDS), \
+            mock.patch.object(profile_dit, "CALLS", PROFILE_CALLS):
+        calls = run("profile_dit", profile_dit, PROFILE_DIT_ARGV)
+    tags = list(profile_dit.SAMPLER_TAGS)
+    order = tags + [tag for _ in range(PROFILE_ROUNDS) for tag in tags
+                    for _ in range(PROFILE_CALLS)]
+    per_call = PROFILE_DIT["depth"] * forwards
+    want_by = {"block": {**zero, "fused_dit_block": per_call},
+               "pallas": {**zero, "short_seq_attention": per_call}}
+    if len(calls) != len(order):
+        fail(f"profile_dit made {len(calls)} sampler calls, expected "
+             f"{len(order)}")
+    for tag, got in zip(order, calls):
+        if got != want_by.get(tag[0], zero):
+            fail(f"profile_dit's {tag} sampler call launched {got}, "
+                 f"expected {want_by.get(tag[0], zero)}")
+    first = dict(zip(order[::-1], calls[::-1]))
+    for tag in tags:
+        launches[f"profile_dit_{tag[0]}_call"] = first[tag]
+    log("  profile_dit: launches per sampler call, exact in all "
+        f"{len(calls)}: " + ", ".join(
+            f"{tag[0]} {first[tag]['fused_dit_block']} K1 + "
+            f"{first[tag]['short_seq_attention']} K2" for tag in tags))
+    if any(launches["profile_dit"][k] for k in zero
+           if k not in ("fused_dit_block", "short_seq_attention")):
+        fail("profile_dit launched a kernel off its DiT")
+
+    # the served forwards at the script's widths: every K1 and K2 launch
+    # of one FUSED_BLOCK and one PALLAS_ATTN forward against its plain
+    # version; each folded variant's output beside the einsum route's
+    dt = torch.bfloat16
+    model = dit.DiT(patch=PROFILE_DIT["patch"], dim=PROFILE_DIT["dim"],
+                    depth=PROFILE_DIT["depth"],
+                    n_heads=PROFILE_DIT["n_heads"], in_channels=1,
+                    qkv_fused=True, dtype=dt)
+    params = profile_dit.dit_trees(model, 1, "cuda")[0]
+    x = rng.Draws(31, "cuda").normal((PROFILE_DIT["batch"], 28, 28, 1), dt)
+    t = torch.full((1,), 0.5, dtype=dt, device="cuda")
+    block = dit.make_folded_apply(model)
+    pallas = dit.make_folded_apply(model, fused_block=False)
+    k1_blocks_held("profile_dit FUSED_BLOCK forward",
+                   lambda: block(params, x, t), kernels, dit, dt)
+    launches_held("profile_dit PALLAS_ATTN forward",
+                  lambda: pallas(params, x, t), dit, "short_seq_attention",
+                  kernels.short_seq_attention_ref, 1e-5, dt)
+    with torch.inference_mode():
+        ref = dit.make_folded_apply(model, fused_block=False,
+                                    pallas_attn=False)(params, x, t)
+        scale = float(ref.abs().max())
+        for tag, fn in (("PALLAS_ATTN", pallas), ("FUSED_BLOCK", block)):
+            diff = (fn(params, x, t) - ref).abs()
+            log(f"  profile_dit {tag} forward against FOLDED (the einsum "
+                f"attention), bf16: mean |diff| {float(diff.mean()):.3e}, "
+                f"max {float(diff.max()):.3e} at output scale {scale:.3g}")
+
+    # bench_dit_config through python -m: its rows, each with the keys,
+    # the analytic GFLOP and finite rates
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m",
+         "composable_diffusion_models_tpu_torch.scripts.bench_dit_config",
+         *BENCH_ARGV], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    took["bench_dit_config"] = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"  | {line}")
+    if res.returncode != 0:
+        fail(f"bench_dit_config exited {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    rows = [json.loads(line) for line in res.stdout.splitlines()
+            if line.startswith("{")]
+    from composable_diffusion_models_tpu_torch.scripts import (
+        bench_dit_config)
+    args = bench_dit_config.build_parser().parse_known_args(BENCH_ARGV)[0]
+    keys = ["patch", "dim", "depth", "batch_size", "n_steps",
+            "images_per_sec", "gflop_per_image", "implied_tflops", "mfu"]
+    n_bs = len(args.batch_sizes.split(","))
+    if len(rows) != len(args.configs.split(",")) * n_bs:
+        fail(f"bench_dit_config printed {len(rows)} rows")
+    for r in rows:
+        cfg = dit.DiT(patch=r["patch"], dim=r["dim"], depth=r["depth"],
+                      in_channels=1)
+        gfi = round(entry.dit_gflop_per_image(cfg) * 3 * r["n_steps"], 2)
+        if (list(r) != keys or r["gflop_per_image"] != gfi
+                or not 0 < r["images_per_sec"] < math.inf
+                or not 0 < r["mfu"] < 1):
+            fail(f"bench_dit_config row {r}")
+    log(f"  bench_dit_config: {took['bench_dit_config']:.1f} s, "
+        f"{len(rows)} rows, best "
+        f"{max(r['images_per_sec'] for r in rows)} images/s")
+    log("  phase 31 by call: " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in took.items()))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3791,6 +4013,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
+    t_smoke = time.perf_counter()
+    stamps = [("1-2", t_smoke)]  # (phases, start) for the timing line
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3802,6 +4026,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels against their plain versions
+    stamps.append(("3", time.perf_counter()))
     rows = check_kernels(kernels)
     rows.update(check_unet_kernels(kernels, attention))
     rows.update(check_latent_kernels(kernels, compose))
@@ -3812,8 +4037,11 @@ def main() -> int:
     k1_gate = k1_at(kernels, *SG_K1)
     # every kernel at the new shapes of phases 24-27
     frontier_rows = check_frontier_kernels(kernels, attention)
+    # K1, K2 and K4 at the profilers' shapes (phase 31)
+    profile_rows = check_profile_kernels(kernels)
 
     # 4. main path
+    stamps.append(("4-6", time.perf_counter()))
     trees = [convert.from_flax(convert.init_params(entry.FLAGSHIP, seed=i))
              for i in range(entry.N_EXPERTS)]
     params = entry.load_experts(trees)  # once, as a server would
@@ -3899,6 +4127,7 @@ def main() -> int:
     del params32, out32, ref32, out_plain
 
     # 7, 8. the UNet paths
+    stamps.append(("7-8", time.perf_counter()))
     unet_launches = unet_paths(card, convert, entry, unet, kernels, attention)
     launches["groupnorm_silu"] = unet_launches["A"]["groupnorm_silu"]
     launches["groupnorm_silu_split"] = \
@@ -3906,14 +4135,17 @@ def main() -> int:
     launches["flash_attention"] = unet_launches["B"]["flash_attention"]
 
     # 9. the latent path
+    stamps.append(("9", time.perf_counter()))
     latent_launches = latent_path(card, convert, entry, pca_codec, kernels,
                                   attention)
     launches["blend_eps"] = latent_launches["blend_eps"]
     launches["matmul"] = latent_launches["matmul"]
 
     # 10. the training path, served through fused_dit_block
+    stamps.append(("10", time.perf_counter()))
     training_path(card, entry, kernels, attention)
 
+    stamps.append(("11-15", time.perf_counter()))
     # 11-14. the discrete-DDPM paths and the gray + color DDIM; 15. the
     # DDIM family
     by_path = {"A": unet_launches["A"], "B": unet_launches["B"]}
@@ -3923,6 +4155,7 @@ def main() -> int:
                                attention, compose, samplers))
 
     # 16. the shapes gate; 17. NLL and the last samplers on its expert
+    stamps.append(("16-17", time.perf_counter()))
     gate_run = shapes_gate_path(card, entry, dit, kernels, attention)
     nll_and_samplers(card, entry, samplers, kernels, attention,
                      gate_run["trees"]["unet64"][0], gate_run["probe"])
@@ -3931,7 +4164,8 @@ def main() -> int:
     # 18-20. the config-driven paths: presets through train_image,
     # sample_image, compose_scores and SUPERDIFF; the beta-VAE
     shutil.rmtree(SMOKE_OUT, ignore_errors=True)
-    took = {}
+    stamps.append(("18", time.perf_counter()))
+    took = {a: t1 - t0 for (a, t0), (_, t1) in zip(stamps, stamps[1:])}
     t0 = time.perf_counter()
     by_path.update(trained_superdiff(card, entry, unet, kernels, attention,
                                      compose))
@@ -3990,10 +4224,16 @@ def main() -> int:
     cli_launches = command_lines(card, entry, kernels, attention)
     by_path.update(cli_launches)
     took[30] = time.perf_counter() - t0
-    log("phases 18-30 took " + ", ".join(f"{k}: {v:.1f} s"
-                                         for k, v in took.items()))
 
-    # 31. the kernels line, then the result line. launches: each kernel's
+    # 31. the three profilers on the card
+    t0 = time.perf_counter()
+    profile_launches = profilers(card, dit, kernels, attention)
+    took[31] = time.perf_counter() - t0
+    log("phases 1-31 took " + ", ".join(f"{k}: {v:.1f} s"
+                                        for k, v in took.items())
+        + f"; in all {time.perf_counter() - t_smoke:.1f} s")
+
+    # 32. the kernels line, then the result line. launches: each kernel's
     # count on the path that serves it (fused_dit_block: the DiT path;
     # short_seq_attention: fused_block=False; groupnorm_silu and its two-part
     # form groupnorm_silu_split (the same source; the JAX function it
@@ -4074,6 +4314,12 @@ def main() -> int:
             # phase 30: every command line's launches, zeros included
             row.setdefault("launches_by_path", {}).update(
                 {p: c[row["name"]] for p, c in cli_launches.items()})
+        if row["name"] in profile_rows:
+            # phase 31: each profiler's run and one sampler call of each
+            # variant, zeros included; phase 3 at the profilers' shapes
+            row.setdefault("launches_by_path", {}).update(
+                {p: c[row["name"]] for p, c in profile_launches.items()})
+            row["profile_shapes"] = profile_rows[row["name"]]
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,8 @@ fused-QKV and the stock multi-head attention layouts). Images are NHWC;
 
   The folded block then runs as one ``fused_dit_block`` kernel, or, with
   ``fused_block=False``, as LayerNorm + GEMMs around the
-  ``short_seq_attention`` kernel; ``fold_ln=True`` also folds the
+  ``short_seq_attention`` kernel (or, with ``pallas_attn=False``, around
+  the attention's einsum chain); ``fold_ln=True`` also folds the
   LayerNorm's normalisation into the GEMMs' epilogue.
 """
 
@@ -150,11 +151,7 @@ class DiT:
                         "with pallas_attn=False")
                 out = short_seq_attention(qkv, nh)
             else:
-                q, k, v = qkv.reshape(b, n, 3, nh, hd).unbind(2)
-                s = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.sqrt(
-                    torch.tensor(float(hd), dtype=h.dtype))
-                w = torch.softmax(s.float(), dim=-1).to(h.dtype)
-                out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, n, d)
+                out = einsum_attention(qkv, nh, h.dtype)
             return _dense(out, a["proj"], dt)
         if self.pallas_attn:
             raise ValueError("pallas_attn needs the fused-QKV layout "
@@ -168,6 +165,23 @@ class DiT:
         out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, n, d)
         return _dense(out, {"kernel": a["out"]["kernel"].reshape(d, d),
                             "bias": a["out"]["bias"]}, dt)
+
+
+def einsum_attention(qkv: torch.Tensor, n_heads: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """The fused-QKV attention core in PyTorch ops, from a packed (B, T, 3D)
+    qkv to (B, T, D): the flax ``FusedQKVAttention``'s einsum chain and the
+    JAX ``short_seq_attention``'s non-Pallas branch. The scores in qkv's
+    dtype, divided by sqrt(hd) in ``dtype``; the softmax in float32; the
+    probabilities rounded to ``dtype`` before the value product."""
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // n_heads
+    q, k, v = qkv.reshape(b, n, 3, n_heads, hd).unbind(2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.sqrt(
+        torch.tensor(float(hd), dtype=dtype))
+    w = torch.softmax(s.float(), dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, n, d)
 
 
 def _dense(v: torch.Tensor, dp, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -212,16 +226,19 @@ def _batch1(name: str, arr) -> torch.Tensor:
 
 
 def make_folded_apply(model: DiT, fused_block: bool = True,
-                      fold_ln: bool = False):
+                      fold_ln: bool = False, pallas_attn: bool = True):
     """``apply(params, x, t, *labels)`` computing the DiT forward with the
     per-step adaLN fold; t and every label must be batch-size 1.
 
     ``fused_block=True`` runs each whole block as the ``fused_dit_block``
     kernel; ``False`` runs LayerNorm and the GEMMs in PyTorch around the
-    ``short_seq_attention`` kernel. ``fold_ln=True`` (which takes the second
-    route whatever ``fused_block`` says, as in the JAX package) also folds
-    the LayerNorm's normalisation into the GEMM epilogue: with per-row
-    float32 statistics (mu, sigma) and the column sums s = 1^T W',
+    attention core: the ``short_seq_attention`` kernel, or with
+    ``pallas_attn=False`` :func:`einsum_attention` (PyTorch ops, as the
+    JAX package's non-Pallas route computes it; a bypass the caller asks
+    for, never a fallback). ``fold_ln=True`` (which takes the second route
+    whatever ``fused_block`` says, as in the JAX package) also folds the
+    LayerNorm's normalisation into the GEMM epilogue: with per-row float32
+    statistics (mu, sigma) and the column sums s = 1^T W',
     LN(x) @ W' + b' == (x @ W' - mu * s) / sigma + b', the product taken on
     the raw residual stream with float32 accumulation. On CPU tensors both
     kernels take their plain versions."""
@@ -293,7 +310,8 @@ def make_folded_apply(model: DiT, fused_block: bool = True,
                                       w1_f, b1_f, w2_f, b2_f, model.n_heads)
                 continue
             qkv = ln_gemm(tok, w_qkv_f, b_qkv_f)
-            o = short_seq_attention(qkv, model.n_heads)
+            o = (short_seq_attention(qkv, model.n_heads) if pallas_attn
+                 else einsum_attention(qkv, model.n_heads, qkv.dtype))
             tok = tok + (o @ w_pr_f + b_pr_f)
             h = F.gelu(ln_gemm(tok, w1_f, b1_f), approximate="tanh")
             tok = tok + (h @ w2_f + b2_f)

@@ -884,3 +884,33 @@ def test_compose_scores_command_line_is_its_entry_point(tmp_path):
     ref = entry.compose_scores("mnist_image", ["expert_a", "expert_b"],
                                seed=3, out=str(tmp_path), overrides=ov)
     assert got[0].is_cuda and torch.equal(got[0], ref)
+
+
+@pytest.mark.parametrize("kw,k1,k2", [
+    ({}, 2, 0), ({"fused_block": False}, 0, 2),
+    ({"fused_block": False, "pallas_attn": False}, 0, 0),
+    ({"fold_ln": True, "pallas_attn": False}, 0, 0)])
+def test_folded_routes_launch_their_kernels(kw, k1, k2):
+    """The folded DiT's routes on the card, as profile_dit times them:
+    FUSED_BLOCK one fused_dit_block launch a block, PALLAS_ATTN one
+    short_seq_attention launch a block, the einsum routes none; each
+    bf16 forward within 0.05 of the einsum route's on the mean."""
+    from composable_diffusion_models_tpu_torch.models.dit import (
+        DiT, make_folded_apply)
+    cfg = DiT(patch=7, dim=64, depth=2, n_heads=2, in_channels=1,
+              qkv_fused=True, dtype=torch.bfloat16)
+    params = entry.load_experts(
+        [convert.from_flax(convert.init_params(cfg, seed=1))])[0]
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(4, 28, 28, 1, generator=g).to("cuda", torch.bfloat16)
+    t = torch.tensor([0.5], device="cuda")
+    n1, n2 = (kernels.fused_dit_block.launches,
+              kernels.short_seq_attention.launches)
+    with torch.inference_mode():
+        got = make_folded_apply(cfg, **kw)(params, x, t)
+        ref = make_folded_apply(cfg, fused_block=False,
+                                pallas_attn=False)(params, x, t)
+    torch.cuda.synchronize()
+    assert (kernels.fused_dit_block.launches - n1,
+            kernels.short_seq_attention.launches - n2) == (k1, k2)
+    assert float((got - ref).abs().mean()) <= 0.05

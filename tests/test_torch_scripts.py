@@ -47,8 +47,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 PKG = "composable_diffusion_models_tpu_torch.scripts"
 
-# the 26 command lines: every script of scripts/ but the three profilers,
-# which wait for the benchmark
+# the 29 command lines: every script of scripts/
 NAMES = ("train_image", "sample_image", "compose_scores", "superdiff",
          "layout_compose", "compose_bbox", "compose_images_ddim",
          "compose_images_ito", "compose_cfg", "compose_cifar", "train_vae",
@@ -56,7 +55,8 @@ NAMES = ("train_image", "sample_image", "compose_scores", "superdiff",
          "latent_shape_experts", "superposition_2d", "eval_nll",
          "eval_composition", "eval_superdiff", "summarize_evals",
          "quality_gate_flagship", "quality_gate_shapes", "frontier_sweep",
-         "visualize_forward", "visualize_composition_latent")
+         "visualize_forward", "visualize_composition_latent", "profile_dit",
+         "profile_unet", "bench_dit_config")
 
 # The stated exceptions to "the script's flags, exactly":
 # * the scripts that take no runtime flags get them: every command line of
@@ -66,8 +66,11 @@ NAMES = ("train_image", "sample_image", "compose_scores", "superdiff",
 ADDED_RUNTIME_FLAGS = ("frontier_sweep", "summarize_evals")
 # * a default that was a TPU's number is the H100's: the serving MFU that
 #   projects the frontier's images/s (0.36 on the TPU; 0.0262 measured on
-#   the flagship DiT path on an H100 80GB HBM3 at 700 W)
-CHANGED_DEFAULTS = {("frontier_sweep", "mfu"): (0.36, 0.0262)}
+#   the flagship DiT path on an H100 80GB HBM3 at 700 W), and the bf16
+#   peak bench_dit_config's MFU is taken against (195 TFLOP/s on the TPU;
+#   the H100's dense 989)
+CHANGED_DEFAULTS = {("frontier_sweep", "mfu"): (0.36, 0.0262),
+                    ("bench_dit_config", "peak_tflops"): (195.0, 989.0)}
 # (frontier_sweep's --timeout keeps its name and default; the port runs
 # each cell in its own process, so the flag is accepted and unused.)
 

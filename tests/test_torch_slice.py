@@ -167,7 +167,7 @@ def test_port_imports_nothing_of_jax():
     # shapes gate's and NLL path's (data, models.unet, models.probe,
     # samplers, convert, eval, gate, entry, ops.kernels, ops.attention),
     # the config-driven paths' and the evaluation scripts', parallel/, and
-    # the command lines of scripts/
+    # the command lines of scripts/ (the profilers among them)
     assert {PKG.name + "." + m for m in (
         "models.dit", "models.unet", "models.mlp", "models.probe",
         "models.embeddings", "ops.kernels", "ops.attention", "ops.pca",
@@ -189,7 +189,8 @@ def test_port_imports_nothing_of_jax():
         "scripts.eval_superdiff", "scripts.summarize_evals",
         "scripts.quality_gate_flagship", "scripts.quality_gate_shapes",
         "scripts.frontier_sweep", "scripts.visualize_forward",
-        "scripts.visualize_composition_latent")} <= set(mods)
+        "scripts.visualize_composition_latent", "scripts.profile_dit",
+        "scripts.profile_unet", "scripts.bench_dit_config")} <= set(mods)
     code = ("import sys\n"
             + "".join(f"sys.modules[{n!r}] = None\n" for n in _FORBIDDEN)
             + "import importlib\n"
