@@ -17,12 +17,18 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     are held at each route's edges (both operand majors) and are timed on
     every route over the depth or keys where the limits sit;
     ``groupnorm_silu`` at forced row-split counts beside the wrapper's
-    choice, and its two-part form ``groupnorm_silu_split`` at the UNet
-    paths' shapes and at ragged ones (groups that straddle the parts, one
-    part only); ``flash_attention`` at head widths it pads (8, 24, 48, 80,
-    100); the bfloat16 kernels' fast GELU and sigmoid where they saturate
-    (|x| around 10 and 80); ``fused_dit_block`` also at the shapes gate's
-    DiT cells, (64, 64, 256) bf16, one 64-token image a block;
+    choice (in the dtype each path serves), and its two-part form
+    ``groupnorm_silu_split`` at the UNet paths' shapes and at ragged ones
+    (groups that straddle the parts, one part only); ``flash_attention`` at
+    head widths it pads (8, 24, 48, 80, 100); the bfloat16 kernels' fast
+    GELU and sigmoid where they saturate (|x| around 10 and 80);
+    ``fused_dit_block`` also at the shapes gate's DiT cells, (64, 64, 256)
+    bf16, one 64-token image a block, and its cluster route (bf16 images of
+    65-256 tokens, one thread-block cluster of ceil(T / 64) blocks an image)
+    at the ``dit_p4_d256_l8`` cell's (64, 256, 256) and at (64, 128, 256),
+    (48, 81, 256) with 8 heads and (16, 144, 64) with 2, with the clusters
+    the card holds at once; at every K1 shape the blocks a launch runs and
+    the weight bytes they read through L2;
     ``blend_eps`` also at the blends of phases 19 and 20 and at phase 22's
     ``eval_composition(op="avg")`` shape (2, 32, 64, 64, 3), beside the
     device time of an empty kernel launch (the floor under its bound) and
@@ -116,8 +122,8 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     ``scripts/quality_gate_shapes.py`` cut to the phase's time at full
     width: 8192 shapes of 64 x 64 made on the card, the two-factor probe,
     the shape and color experts of ``unet64`` (batch 128, bf16 compute,
-    GroupNorm in PyTorch ops) and ``dit_p8_d256_l8`` (float32) trained a few
-    hundred steps each (train steps/s, images/s, loss at start and end,
+    GroupNorm in PyTorch ops) and ``dit_p8_d256_l8`` (float32) trained 150
+    steps each (train steps/s, images/s, loss at start and end,
     a short profile of one expert's steps and of each served cell),
     then the 9 (shape, color) cells at 64 samples and 50 steps through the
     served programs: exactly 800 ``groupnorm_silu`` + 200
@@ -126,7 +132,13 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     images/s, the verdict and its criteria (of an under-trained run: not a
     condition); a trained cell of each against its plain path (phase 3
     holds ``fused_dit_block`` at these cells' (64, 64, 256) bf16 against
-    its plain version, timed, beside its bound);
+    its plain version, timed, beside its bound); then the reference's other
+    DiT candidate, ``dit_p4_d256_l8`` (256 tokens an image, K1's cluster
+    route): two random experts served as the cell (1, 2) through
+    ``entry.sample`` (64 samples, 50 steps, the gate's labels), exactly
+    800 ``fused_dit_block`` launches and no other kernel, images/s, the
+    samples against the plain path (mean |diff| <= 0.05) and every block
+    of one expert's forward against its plain version;
 17. NLL and the last samplers on the trained ``unet64`` shape expert:
     ``entry.eval_nll`` (64 images, 50 steps, 1 probe: finite bits/dim,
     seconds, images/s); ``parallel_prob_flow`` swept to its fixed point
@@ -253,7 +265,7 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     rule's ``skipped`` line where matplotlib is missing;
 31. the profilers (``scripts.profile_unet``, ``scripts.profile_dit``,
     ``main(argv)`` in this process without ``--cpu``, at the scripts'
-    widths; rows of 10 chained calls and 2 sampler rounds of 1 call, cut
+    widths; rows of 5 chained calls and 2 sampler rounds of 1 call, cut
     for time) print their tables: every DDIM call of profile_unet with
     exactly 1200 + 300 K4 launches, every sampler call of profile_dit with
     exactly 1200 ``fused_dit_block`` launches under FUSED_BLOCK, 1200
@@ -397,12 +409,23 @@ PROFILE_STEPS, UNFUSED_STEPS = 5, 20
 # the shapes gate (phase 16): scripts/quality_gate_shapes.py's protocol cut
 # to the phase's time: its 8192 shapes of 64 x 64 x 3 (made on the card),
 # the probe SG_PROBE_STEPS (its 2000), each configuration's shape and color
-# experts SG_TRAIN_STEPS at its batch 128 (its 12000), then its 9 cells at
-# its 64 samples and 50 steps
+# experts SG_TRAIN_STEPS at its batch 128 (its 12000; 300 until the
+# dit_p4_d256_l8 cell came: both losses fall below a quarter of their start
+# within 100 steps), then its 9 cells at its 64 samples and 50 steps
 SG_DATA_N, SG_IMG, SG_BATCH = 8192, 64, 128
-SG_TRAIN_STEPS, SG_PROBE_STEPS, SG_SAMPLES, SG_STEPS = 300, 300, 64, 50
+SG_TRAIN_STEPS, SG_PROBE_STEPS, SG_SAMPLES, SG_STEPS = 150, 300, 64, 50
 SG_PROFILE_STEPS = 10
 SG_K1 = (SG_SAMPLES, 64, 256, 8)  # (B, T, D, heads) of the DiT cells' K1
+# the reference's other DiT candidate, dit_p4_d256_l8 (scripts/
+# run_shapes_gate_r5.sh): 256 tokens an image at 64 x 64, K1's cluster
+# route. Two random experts served as a gate cell (SG_SAMPLES images,
+# SG_STEPS steps, the cell (shape 1, color 2)); K1 held at the cell's shape,
+# at 128 tokens (clusters of 2), at 81 (a partial last block) and at 144
+# tokens of width 64 with 2 heads
+SG_P4 = "dit_p4_d256_l8"
+SG_P4_CELL = (1, 2)
+K1_CLUSTER = [(SG_SAMPLES, 256, 256, 8), (SG_SAMPLES, 128, 256, 8),
+              (48, 81, 256, 8), (16, 144, 64, 2)]
 # NLL and the last samplers (phase 17) on the trained unet64 shape expert:
 # eval_nll at NLL_N images, NLL_STEPS steps, 1 probe; Picard sweeps over
 # PPF_STEPS time points at batch PPF_BATCH, as many sweeps as points (the
@@ -516,10 +539,11 @@ FA_WIDE_D = (160, 256)
 # experts, 50-step DDIM; profile_unet: the UNet of base 64 at 28 x 28 x 1,
 # batch 384, 3 experts; bench_dit_config: p7_d256_l6 at batch 256, 512 and
 # 1024. Cut for time (at the scripts' defaults the phase took 112.4 s):
-# 10 of the scripts' 100 chained calls a row, bench_dit_config's 3 timed
-# calls a batch size to 1, and profile_dit's sampler A/B from 3 rounds of
-# 3 calls a variant to PROFILE_ROUNDS of PROFILE_CALLS; never a width
-PROFILE_DIT_ARGV = PROFILE_UNET_ARGV = ["--reps", "10"]
+# 5 of the scripts' 100 chained calls a row (10 until the dit_p4_d256_l8
+# cell of phase 16 came), bench_dit_config's 3 timed calls a batch size to
+# 1, and profile_dit's sampler A/B from 3 rounds of 3 calls a variant to
+# PROFILE_ROUNDS of PROFILE_CALLS; never a width
+PROFILE_DIT_ARGV = PROFILE_UNET_ARGV = ["--reps", "5"]
 BENCH_ARGV = ["--iters", "1"]
 PROFILE_ROUNDS, PROFILE_CALLS = 2, 1
 PROFILE_DIT = dict(patch=7, dim=256, depth=8, n_heads=8, batch=768)
@@ -591,6 +615,13 @@ def device_ms(fn, iters: int = 10, match: str = "cdm::") -> float:
         time.sleep(0.2 * (attempt + 1))
     fail(f"ten traces in a row kept no whole set of device records "
          f"matching {match!r}")
+
+
+def sweeps_splits(b: int, dtype) -> bool:
+    """Whether phase 3 sweeps the row splits of a timed GroupNorm shape of
+    batch ``b``: only in the dtype its path serves (path A's batch in bf16,
+    path B's in float32)."""
+    return (b == A_BATCH) == (dtype == torch.bfloat16)
 
 
 def split_sweep(kernels, call) -> str:
@@ -730,7 +761,7 @@ def check_kernels(kernels):
             flops = 2 * b * t * 12 * d * d + 4 * b * t * t * d
             nbytes = es * (2 * b * t * d + 12 * d * d + 9 * d)
             bms, by = bound_ms(flops, nbytes, dtype)
-            blocks = -(-b // (kernels.block_rows(dtype, t, d) // t))
+            blocks = kernels.block_grid(dtype, b, t, d)
             log(f"  fused_dit_block {str(dtype)[6:]}: kernel {ms:.4f} ms "
                 f"({dev:.4f} ms on the device in a trace), "
                 f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}; "
@@ -831,10 +862,12 @@ def check_unet_kernels(kernels, attention):
                 f"{lib:.4f} ms, bound {bms:.4f} ms ({by}; "
                 f"{nbytes / 1e6:.2f} MB)")
             # what the choice of row splits per sample is worth
-            log(f"  groupnorm_silu {name} {shape} device ms by row splits "
-                f"(wrapper picks {kernels.gn_splits(dtype, shape[0], hw, c)}"
-                f"): " + split_sweep(kernels, lambda: kernels.groupnorm_silu(
-                    x, scale, bias, groups)))
+            if sweeps_splits(shape[0], dtype):
+                log(f"  groupnorm_silu {name} {shape} device ms by row "
+                    f"splits (wrapper picks "
+                    f"{kernels.gn_splits(dtype, shape[0], hw, c)}): "
+                    + split_sweep(kernels, lambda: kernels.groupnorm_silu(
+                        x, scale, bias, groups)))
             if shape == GN_MAIN:
                 rows[("groupnorm_silu", dtype)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
@@ -876,10 +909,13 @@ def check_unet_kernels(kernels, attention):
                 f"{ms:.4f} ms ({dev:.4f} ms on the device in a trace), "
                 f"PyTorch ops (its plain version, what the path ran before) "
                 f"{plain:.4f} ms, bound {bms:.4f} ms ({by}; "
-                f"{nbytes / 1e6:.2f} MB); device ms by row splits (wrapper "
-                f"picks {kernels.gn_splits(dtype, b, h * w, max(chans))}): "
-                + split_sweep(kernels, lambda: kernels.groupnorm_silu_split(
-                    parts, scale, bias, groups)))
+                f"{nbytes / 1e6:.2f} MB)" + (
+                    f"; device ms by row splits (wrapper picks "
+                    f"{kernels.gn_splits(dtype, b, h * w, max(chans))}): "
+                    + split_sweep(kernels, lambda: kernels
+                                  .groupnorm_silu_split(parts, scale, bias,
+                                                        groups))
+                    if sweeps_splits(b, dtype) else ""))
             if ((b, h, w), chans, groups) == GN_SPLIT_SHAPES[0]:
                 # no single PyTorch call normalises two tensors as one
                 rows[("groupnorm_silu_split", dtype)] = dict(
@@ -1969,7 +2005,9 @@ def ddim_family(card, convert, entry, unet, kernels, attention, compose,
 def k1_at(kernels, b, t, d, h) -> dict:
     """fused_dit_block in bf16 at (B, T, D) with H heads against its plain
     version on the same random inputs, timed by events and from a trace,
-    beside its bound; the numbers for the JSON line."""
+    beside its bound, with the blocks a launch runs (each reads every
+    weight through L2) and, on the cluster route, how many clusters the
+    card holds at once; the numbers for the JSON line."""
     gen = torch.Generator().manual_seed(16)
     dtype = torch.bfloat16
     args = block_inputs(b, t, d, dtype, gen)
@@ -1984,18 +2022,31 @@ def k1_at(kernels, b, t, d, h) -> dict:
     nbytes = 2 * (2 * b * t * d + 12 * d * d + 9 * d)
     bms, by = bound_ms(flops, nbytes, dtype)
     rows = kernels.block_rows(dtype, t, d)
+    n_cta = kernels.block_cluster(dtype, t, d)
+    blocks = kernels.block_grid(dtype, b, t, d)
+    l2_mb = blocks * 12 * d * d * 2 / 1e6
+    clusters = (kernels.block_max_clusters(d, h, n_cta) if n_cta > 1
+                else None)
     log(f"fused_dit_block bf16 B={b} T={t} D={d} H={h} (heads of {d // h}; "
-        f"{kernels.block_route(dtype, t, d)} route, {rows} rows a block): "
-        f"max_abs_err={err:.3e} tol={tol:.3e}; kernel {ms:.4f} ms ({dev:.4f} "
-        f"ms on the device in a trace), plain {plain:.4f} ms, bound "
-        f"{bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
-        f"MB)")
+        f"{kernels.block_route(dtype, t, d)} route, {rows} rows a block"
+        + (f", {n_cta} blocks an image, {clusters} clusters of {n_cta} at "
+           f"once on the card (cudaOccupancyMaxActiveClusters)"
+           if n_cta > 1 else "")
+        + f"): max_abs_err={err:.3e} tol={tol:.3e}; kernel {ms:.4f} ms "
+        f"({dev:.4f} ms on the device in a trace), plain {plain:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB); {blocks} blocks each read all "
+        f"{12 * d * d * 2 / 1e6:.2f} MB of weights: {l2_mb:.1f} MB through "
+        f"L2 per launch")
     if not err <= tol:
         fail(f"fused_dit_block disagrees with its plain version at "
              f"{(b, t, d)}")
+    if n_cta > 1 and not clusters:
+        fail(f"fused_dit_block: no cluster of {n_cta} blocks fits the card")
     return dict(shape=[b, t, d, h], route=kernels.block_route(dtype, t, d),
                 max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=None)
+                bound_ms=bms, bound_by=by, library_ms=None, blocks=blocks,
+                l2_weight_mb=l2_mb, max_active_clusters=clusters)
 
 
 def loss_curve(label: str, losses) -> None:
@@ -2191,6 +2242,58 @@ def shapes_gate_path(card, entry, dit, kernels, attention) -> dict:
         fail("the trained DiT cell's kernel path drifts from its plain path")
     probe, probe_params = probe_box["out"]
     return dict(launches=first_pass, trees=trees, probe=(probe, probe_params))
+
+
+def dit_p4_cell(card, convert, entry, dit, kernels, attention) -> dict:
+    """Phase 16, the reference's dit_p4_d256_l8 candidate: two random
+    experts served as one gate cell through ``entry.sample`` (256 tokens
+    an image: K1's cluster route). Returns the cell's K1 launches."""
+    from composable_diffusion_models_tpu_torch.rng import Draws
+    _, serve = entry.shapes_gate_model(SG_P4, SG_IMG)
+    trees = [convert.from_flax(convert.init_params(serve, seed=60 + i))
+             for i in range(2)]
+    params = entry.load_experts(trees)
+    x = Draws(41, "cuda").normal((SG_SAMPLES, SG_IMG, SG_IMG, 3))
+    labs = torch.tensor([[SG_P4_CELL[0]], [SG_P4_CELL[1]]], device="cuda")
+
+    def run(n_steps):
+        return entry.sample(params, x, n_steps, labels=(labs,), model=serve)
+    run(2)  # warm-up
+    reset_launches(kernels, attention)
+    out, sec = timed(lambda: run(SG_STEPS))
+    launches = read_launches(kernels, attention)
+    expect = dict.fromkeys(launches, 0)
+    expect["fused_dit_block"] = serve.depth * 2 * SG_STEPS
+    gflop = entry.dit_gflop_per_image(serve) * 2 * SG_STEPS
+    log(f"{SG_P4} cell {SG_P4_CELL}, two random experts ({serve.n_tokens} "
+        f"tokens of {serve.dim}, depth {serve.depth}, fused_dit_block's "
+        f"{kernels.block_route(torch.bfloat16, serve.n_tokens, serve.dim)} "
+        f"route): {SG_SAMPLES} samples x {SG_STEPS} steps in {sec:.3f} s = "
+        f"{SG_SAMPLES / sec:.1f} images/s, {gflop:.1f} GFLOP/image -> "
+        f"{gflop * SG_SAMPLES / sec / 1e3:.1f} TFLOP/s ({card}); launches "
+        f"{launches}")
+    if launches != expect:
+        fail(f"{SG_P4}: the cell launched {launches}, expected {expect}")
+    if tuple(out.shape) != tuple(x.shape) or not bool(
+            torch.isfinite(out).all()):
+        fail(f"{SG_P4}: the cell's samples are not finite of shape "
+             f"{tuple(x.shape)}")
+    with mock.patch.object(dit, "fused_dit_block",
+                           kernels.fused_dit_block_ref):
+        ref, sec_p = timed(lambda: run(SG_STEPS))
+    diff = (out - ref).abs()
+    log(f"  fused_dit_block vs its plain version after {SG_STEPS} steps: "
+        f"mean |diff| {float(diff.mean()):.4e}, max {float(diff.max()):.4e}; "
+        f"|x| >= 1 at {float((out.abs() >= 1).float().mean()):.3f} of the "
+        f"elements; the plain path {SG_SAMPLES / sec_p:.1f} images/s")
+    if not float(diff.mean()) <= 0.05:
+        fail(f"the {SG_P4} cell's kernel path drifts from its plain path")
+    t = torch.tensor([0.5], device="cuda", dtype=torch.bfloat16)
+    fwd = dit.make_folded_apply(serve)
+    k1_blocks_held(f"{SG_P4} expert 0, one forward of {SG_SAMPLES}",
+                   lambda: fwd(params[0], x.to(torch.bfloat16), t, labs[0]),
+                   kernels, dit, torch.bfloat16)
+    return launches["fused_dit_block"]
 
 
 def nll_and_samplers(card, entry, samplers, kernels, attention, tree,
@@ -4035,6 +4138,8 @@ def main() -> int:
     # where traces keep their device records (after the profiles of the
     # later phases, a CUDA-only trace came back without them)
     k1_gate = k1_at(kernels, *SG_K1)
+    # its cluster route at the dit_p4_d256_l8 cell's shape and around it
+    k1_cluster = [k1_at(kernels, *s) for s in K1_CLUSTER]
     # every kernel at the new shapes of phases 24-27
     frontier_rows = check_frontier_kernels(kernels, attention)
     # K1, K2 and K4 at the profilers' shapes (phase 31)
@@ -4157,6 +4262,7 @@ def main() -> int:
     # 16. the shapes gate; 17. NLL and the last samplers on its expert
     stamps.append(("16-17", time.perf_counter()))
     gate_run = shapes_gate_path(card, entry, dit, kernels, attention)
+    p4_k1 = dit_p4_cell(card, convert, entry, dit, kernels, attention)
     nll_and_samplers(card, entry, samplers, kernels, attention,
                      gate_run["trees"]["unet64"][0], gate_run["probe"])
     by_path["shapes_gate"] = gate_run["launches"]["unet64"]
@@ -4277,7 +4383,9 @@ def main() -> int:
                 "frontier_gate_pass": frontier_pass["fused_dit_block"],
                 **{p: c["fused_dit_block"] for p, c in ep_launches.items()
                    if p != "ep_gloo_c"}}
+            row["launches_by_path"]["shapes_gate_dit_p4_cell"] = p4_k1
             row["shapes_gate_shape"] = k1_gate
+            row["cluster_shapes"] = k1_cluster
         if row["name"] == "flash_attention":
             row["launches_by_path"] = {
                 "B": launches["flash_attention"],

@@ -73,6 +73,35 @@
 // block still reads all 12 D^2 weights from L2 (1.57 MB x 128 blocks = 201
 // MB per launch).
 //
+// The cluster route serves bf16 images of 65 to 256 tokens at D <= 256
+// (the shapes gate's dit_p4_d256_l8: 256 tokens at D = 256), which the
+// 64-row tile cannot hold. Every phase of the block but attention works on
+// one token row at a time, so an image is cut into n = ceil(T / 64) blocks
+// of 64 consecutive rows, launched as one thread-block cluster of n
+// (cudaLaunchKernelEx, cluster dimension (n, 1, 1), grid B * n). Each block
+// is the wgmma kernel above on its 64 rows, its layout unchanged (rows past
+// T in the last block are zero on load and never stored). Attention is the
+// only step that mixes rows: a consumer thread owns one (query, head) pair
+// of its block's rows and walks the image's keys 0 .. T - 1, key j in
+// cluster rank j / 64 at row j % 64, reading the peers' K and V through
+// distributed shared memory (the peer's generic address from mapa, at the
+// same sw_off). Two cluster barriers (barrier.cluster arrive.release /
+// wait.acquire, every thread of the cluster arriving at each):
+//   1. after the qkv epilogue: every block's K and V are in place;
+//   2. arrived after attention, waited for before the W1 epilogue writes
+//      over Q[:, 0:4D]: no peer still reads this block's K and V, and no
+//      block exits while a peer reads its shared memory.
+// The producer warpgroup arrives at both too: at barrier 1 when it starts
+// (it publishes nothing), and at barrier 2 after waiting for barrier 1,
+// which it does before its first W1 tile, once every qkv and proj tile is
+// in the ring: the tiles it waits on a free stage for until then are all
+// consumed before the consumers wait at barrier 2, so neither side waits
+// for the other in a circle. Its numerics are the wgmma kernel's and
+// attend_query's. What bounds it: every block still reads all 12 D^2
+// weights through L2 (1.57 MB x B * n blocks: 403 MB at the gate's 64
+// images of 256 tokens), and attention walks 256 keys three times per
+// (query, head), a quarter of them from its own block.
+//
 // The rows route is a second, synchronous kernel: fp32 FMAs on the CUDA
 // cores over one staged weight k-tile at a time, 8 warps, a tile of 16, 32
 // or 64 rows with X, LN(x) and the wide buffer [rows][4D + 8] in shared
@@ -364,6 +393,45 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
 
+// ------------------------------------------------- thread-block clusters
+constexpr int MAX_CLUSTER = 4;  // blocks of one image: T <= 4 x 64
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// Every thread of the cluster arrives (this thread's earlier writes are
+// released to the cluster) / waits until all have arrived (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The generic address of p (in this block's shared memory) in the shared
+// memory of the cluster's block `rank`
+__device__ __forceinline__ void* cluster_map(void* p, int rank) {
+  uint64_t out;
+  asm("mapa.u64 %0, %1, %2;\n"
+      : "=l"(out)
+      : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<void*>(out);
+}
+
+// The rows 0 .. T - 1 of one image held by a cluster: row r is row r % 64
+// of block r / 64's swizzled wide buffer, at the offset that `base` has in
+// this block
+struct ClusterTile {
+  unsigned char* base;
+  __device__ __forceinline__ bf16* at(int r, int c) const {
+    return static_cast<bf16*>(
+        cluster_map(base + sw_off(r % MT16, c), r / MT16));
+  }
+};
+
 // The ring: stage s is STAGE_BYTES at stage0 + s * STAGE_BYTES. Producer
 // and consumers count the same tiles t = 0, 1, ...; tile t lives in stage
 // t % STAGES in round t / STAGES. empty[s] completes a phase each time the
@@ -407,18 +475,30 @@ struct TileWalk {
   }
 };
 
+// k-tiles of GEMM g in the ring
+__device__ __forceinline__ int gemm_tiles(const Weight& g) {
+  return g.k / KT * ((g.n + NC - 1) / NC);
+}
+
 // Warpgroup 0: copies every k-tile into the ring, as far ahead as there are
 // free stages. Each thread copies its 4 vectors of a tile with cp.async and
 // leaves an arrival on the tile's "full" barrier that fires when those
 // copies have landed (cp.async.mbarrier.arrive.noinc): the thread itself
-// never waits for data, only for a free stage.
-__device__ void produce_weights(const Weight (&gemms)[4], const Ring& ring) {
+// never waits for data, only for a free stage. In a cluster it also
+// arrives at the cluster's two barriers (see the header).
+__device__ void produce_weights(const Weight (&gemms)[4], const Ring& ring,
+                                bool cluster) {
   const int p = threadIdx.x;  // 0 .. WG - 1
   int total = 0;
-  for (int g = 0; g < 4; ++g)
-    total += gemms[g].k / KT * ((gemms[g].n + NC - 1) / NC);
+  for (int g = 0; g < 4; ++g) total += gemm_tiles(gemms[g]);
+  const int first_w1 = gemm_tiles(gemms[0]) + gemm_tiles(gemms[1]);
+  if (cluster) cluster_arrive();  // barrier 1
   TileWalk at{0, 0, 0, 0};
   for (int t = 0; t < total; ++t) {
+    if (cluster && t == first_w1) {
+      cluster_wait();    // barrier 1
+      cluster_arrive();  // barrier 2
+    }
     const int s = t % STAGES;
     // the consumer has released what this stage held a round ago
     mbar_wait(ring.empty(s), ((t / STAGES) & 1) ^ 1);
@@ -440,6 +520,7 @@ __device__ void produce_weights(const Weight (&gemms)[4], const Ring& ring) {
     at.next(gemms);
   }
   cp_async_wait<0>();
+  if (cluster) cluster_wait();  // barrier 2
 }
 
 // Epilogues of the bf16 GEMMs, on a pair of neighbouring columns c, c + 1
@@ -666,13 +747,18 @@ __host__ __device__ constexpr size_t smem_bytes_bf16(int d) {
 }
 static_assert(smem_bytes_bf16(MAX_D) <= 232448, "a block's shared memory");
 
+// tile: the images a block holds (whole images of n_tok <= 64 rows), or,
+// launched as clusters for images of n_tok > 64, the blocks of one image
+// (the cluster's size). One kernel serves both routes: the cluster's
+// steps sit behind a flag that is uniform over the launch, so its GEMMs
+// are compiled once.
 template <int HD>
 __global__ void __launch_bounds__(THREADS16, 1)
 fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
                             const bf16* bqkv, const bf16* wpr,
                             const bf16* bpr, const bf16* w1, const bf16* b1,
                             const bf16* w2, const bf16* b2, bf16* out,
-                            int n_img, int n_tok, int d, int imgs_per_tile,
+                            int n_img, int n_tok, int d, int tile,
                             float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the swizzle is a function of the address: panels start on 1024 bytes
@@ -702,7 +788,7 @@ fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     const Weight gemms[4] = {
         {wqkv, d, 3 * d}, {wpr, d, d}, {w1, d, 4 * d}, {w2, 4 * d, d}};
-    produce_weights(gemms, ring);
+    produce_weights(gemms, ring, n_tok > MT16);
     return;
   }
 
@@ -710,10 +796,21 @@ fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
   const int ctid = threadIdx.x - WG;
   const Consumer me;
   const int n_heads = d / HD;
-  const int img0 = blockIdx.x * imgs_per_tile;
-  const int imgs = min(imgs_per_tile, n_img - img0);
-  const int rows = imgs * n_tok;
-  const size_t g0 = (size_t)img0 * n_tok * d;
+  const bool cluster = n_tok > MT16;
+  // this block's rows of the stream: whole images, or the cluster rank's
+  // 64 rows of one image
+  int imgs = 1, row0 = 0, rows;
+  size_t g0;
+  if (cluster) {
+    row0 = cluster_rank() * MT16;
+    rows = min(MT16, n_tok - row0);
+    g0 = ((size_t)(blockIdx.x / tile) * n_tok + row0) * d;
+  } else {
+    const int img0 = blockIdx.x * tile;
+    imgs = min(tile, n_img - img0);
+    rows = imgs * n_tok;
+    g0 = (size_t)img0 * n_tok * d;
+  }
   const int vpr = d / 8;
   const uint32_t q_addr = smem_u32(Q);
   uint32_t afrag[A_REGS];  // LN(x), the A operand of the qkv and W1 GEMMs
@@ -731,14 +828,27 @@ fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
   // attention half: qkv into Q[:, 0:3D], attention output over Q[:, 0:D]
   layer_norm16(me, X, ldx, d, stats, afrag);
   gemm_wgmma<true>(me, afrag, 0, d, 3 * d, bqkv, ring, at, EpiStore16{Q});
-  consumer_sync();
-  for (int p = ctid; p < imgs * n_heads * n_tok; p += CONSUMERS) {
-    const int im = p / (n_heads * n_tok), rem = p % (n_heads * n_tok);
-    const SwTile img{Q, im * n_tok};
-    attend_query<bf16, HD>(img, img, rem % n_tok, rem / n_tok, n_tok, d,
-                           scale);
+  if (cluster) {
+    cluster_arrive();  // barrier 1: every block's K and V are in place
+    cluster_wait();
+    // the pairs of this block's rows, a warp's 32 on one head: one key
+    // vector a load for the warp
+    const ClusterTile image{Q};
+    const SwTile mine{Q, -row0};
+    for (int p = ctid; p < rows * n_heads; p += CONSUMERS)
+      attend_query<bf16, HD>(image, mine, row0 + p % rows, p / rows, n_tok,
+                             d, scale);
+  } else {
+    consumer_sync();
+    for (int p = ctid; p < imgs * n_heads * n_tok; p += CONSUMERS) {
+      const int im = p / (n_heads * n_tok), rem = p % (n_heads * n_tok);
+      const SwTile img{Q, im * n_tok};
+      attend_query<bf16, HD>(img, img, rem % n_tok, rem / n_tok, n_tok, d,
+                             scale);
+    }
   }
   fence_proxy_async();
+  if (cluster) cluster_arrive();  // barrier 2: done with the peers
   consumer_sync();
   gemm_wgmma<false>(me, afrag, q_addr, d, d, bpr, ring, at,
                     EpiResidual16{X, ldx});
@@ -746,6 +856,7 @@ fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
 
   // MLP half: GELU hidden into Q[:, 0:4D]
   layer_norm16(me, X, ldx, d, stats, afrag);
+  if (cluster) cluster_wait();  // barrier 2: no peer reads K, V
   gemm_wgmma<true>(me, afrag, 0, d, 4 * d, b1, ring, at, EpiGelu16{Q});
   fence_proxy_async();
   consumer_sync();
@@ -805,47 +916,110 @@ static int launch_rows(int hd, const Args& a) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <int HD>
-static int launch_bf16_hd(const Args& a) {
-  return launch<bf16>(fused_dit_block_bf16_kernel<HD>, THREADS16,
-                      smem_bytes_bf16(a.d), MT16, a);
+// The cluster route's launch configuration: n_cta blocks an image. attr
+// is filled and pointed to.
+static cudaLaunchConfig_t cluster_config(const Args& a, int n_cta,
+                                         cudaLaunchAttribute& attr) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = n_cta;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n_img * n_cta);
+  cfg.blockDim = dim3(THREADS16);
+  cfg.dynamicSmemBytes = smem_bytes_bf16(a.d);
+  cfg.stream = a.stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
-static int launch_bf16(int hd, const Args& a) {
+// n_cta: 1 is the one-block route (whole images of up to 64 rows a block),
+// 2 .. MAX_CLUSTER the cluster route. max_clusters: when not null, the
+// clusters the card can hold at once is written there and nothing runs.
+template <int HD>
+static int launch_bf16_hd(const Args& a, int n_cta, int* max_clusters) {
+  if (n_cta == 1)
+    return launch<bf16>(fused_dit_block_bf16_kernel<HD>, THREADS16,
+                        smem_bytes_bf16(a.d), MT16, a);
+  const auto kern = fused_dit_block_bf16_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes_bf16(a.d));
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(a, n_cta, attr);
+  if (max_clusters) return (int)cudaOccupancyMaxActiveClusters(
+      max_clusters, kern, &cfg);
+  e = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const bf16*>(a.p[0]),
+      static_cast<const bf16*>(a.p[1]), static_cast<const bf16*>(a.p[2]),
+      static_cast<const bf16*>(a.p[3]), static_cast<const bf16*>(a.p[4]),
+      static_cast<const bf16*>(a.p[5]), static_cast<const bf16*>(a.p[6]),
+      static_cast<const bf16*>(a.p[7]), static_cast<const bf16*>(a.p[8]),
+      static_cast<bf16*>(a.out), a.n_img, a.n_tok, a.d, n_cta, a.scale);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+static int launch_bf16(int hd, const Args& a, int n_cta,
+                       int* max_clusters = nullptr) {
   if (a.d > MAX_D) return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 16: return launch_bf16_hd<16>(a);
-    case 32: return launch_bf16_hd<32>(a);
-    case 48: return launch_bf16_hd<48>(a);
-    case 64: return launch_bf16_hd<64>(a);
+    case 16: return launch_bf16_hd<16>(a, n_cta, max_clusters);
+    case 32: return launch_bf16_hd<32>(a, n_cta, max_clusters);
+    case 48: return launch_bf16_hd<48>(a, n_cta, max_clusters);
+    case 64: return launch_bf16_hd<64>(a, n_cta, max_clusters);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace cdm
 
-// dtype: 0 = float32, 1 = bfloat16. mt: token rows per block, which also
-// names the route: 64 in bfloat16 is the wgmma kernel (D <= 256); 16, 32 or
-// 64 in float32 and 32 in bfloat16 the rows route (fp32 FMAs over staged
-// k-tiles; the bfloat16 stream wider than 256). The caller chooses
-// it so that the block's shared memory fits (ops/kernels.py mirrors
-// smem_bytes_rows and smem_bytes_bf16); a size that does not fit fails in
-// cudaFuncSetAttribute and is returned. hd: 16, 32, 48 or 64. Returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for an unsupported combination.
+// dtype: 0 = float32, 1 = bfloat16. mt: token rows per block and n_cta:
+// blocks per image, which together name the route: mt 64 in bfloat16 is
+// the wgmma kernel (D <= 256), with n_cta 1 for whole images of up to 64
+// tokens a block, or n_cta = ceil(n_tok / 64), 2 to 4, for the cluster
+// route; 16, 32 or 64 in float32 and 32 in bfloat16 the rows route (fp32
+// FMAs over staged k-tiles; the bfloat16 stream wider than 256), n_cta 1.
+// The caller chooses them so that the block's shared memory fits
+// (ops/kernels.py mirrors smem_bytes_rows and smem_bytes_bf16); a size that
+// does not fit fails in cudaFuncSetAttribute and is returned. hd: 16, 32,
+// 48 or 64. Returns cudaGetLastError() after the launch (0 on success),
+// the launch's own error, or cudaErrorInvalidValue for an unsupported
+// combination.
 extern "C" int fused_dit_block_launch(
     int dtype, const void* tok, const void* wqkv, const void* bqkv,
     const void* wpr, const void* bpr, const void* w1, const void* b1,
     const void* w2, const void* b2, void* out, int n_img, int n_tok, int d,
-    int hd, int mt, float scale, void* stream) {
+    int hd, int mt, int n_cta, float scale, void* stream) {
   const cdm::Args a{{tok, wqkv, bqkv, wpr, bpr, w1, b1, w2, b2}, out, n_img,
                     n_tok, d, scale, static_cast<cudaStream_t>(stream)};
-  if (n_tok < 1 || n_tok > mt || d % cdm::KT != 0 || d % hd != 0)
+  if (n_tok < 1 || d % cdm::KT != 0 || d % hd != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && mt == 64) return cdm::launch_bf16(hd, a);
+  if (n_cta != 1) {  // the cluster route: exactly the blocks T needs
+    if (dtype != 1 || mt != cdm::MT16 || n_cta > cdm::MAX_CLUSTER ||
+        n_cta != (n_tok + mt - 1) / mt || n_tok <= mt)
+      return (int)cudaErrorInvalidValue;
+    return cdm::launch_bf16(hd, a, n_cta);
+  }
+  if (n_tok > mt) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && mt == 64) return cdm::launch_bf16(hd, a, 1);
   if (dtype == 1 && mt == 32) return cdm::launch_rows<cdm::bf16, 32>(hd, a);
   if (dtype == 0 && mt == 64) return cdm::launch_rows<float, 64>(hd, a);
   if (dtype == 0 && mt == 32) return cdm::launch_rows<float, 32>(hd, a);
   if (dtype == 0 && mt == 16) return cdm::launch_rows<float, 16>(hd, a);
   return (int)cudaErrorInvalidValue;
+}
+
+// The cluster route's occupancy: how many clusters of n_cta blocks (each
+// with the bf16 kernel's shared memory at width d) the card holds at once,
+// from cudaOccupancyMaxActiveClusters. Returns 0 and writes the count to
+// *clusters, or the CUDA error.
+extern "C" int fused_dit_block_max_clusters(int d, int hd, int n_cta,
+                                            int* clusters) {
+  const cdm::Args a{{}, nullptr, 1, n_cta * cdm::MT16, d, 1.f, nullptr};
+  if (n_cta < 2 || n_cta > cdm::MAX_CLUSTER || d % cdm::KT != 0)
+    return (int)cudaErrorInvalidValue;
+  return cdm::launch_bf16(hd, a, n_cta, clusters);
 }

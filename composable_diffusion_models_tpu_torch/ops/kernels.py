@@ -53,6 +53,7 @@ _PANEL_BYTES, _STAGES = 64 * 128, 8
 _ATTN_HEAD_DIMS = (8, 16, 32, 48, 64)
 _BLOCK_HEAD_DIMS = (16, 32, 48, 64)
 _WGMMA_MAX_D = 256  # widest bfloat16 stream of the 64-row wgmma route
+_MAX_CLUSTER = 4    # blocks of one image on the cluster route (MAX_CLUSTER)
 # groupnorm_silu's launch geometry (csrc/groupnorm_silu.cu)
 _GN_THREADS = 256
 _GN_MAX_SPLITS = 32
@@ -201,13 +202,14 @@ short_seq_attention.launches = 0
 # ---------------------------------------------------------- fused_dit_block
 def block_smem_bytes(dtype: torch.dtype, rows: int, d: int) -> int:
     """Shared memory of one fused_dit_block block holding ``rows`` token
-    rows. The wgmma route (bfloat16, D <= 256, 64 rows): up to 1024 bytes
-    of alignment, the wide buffer as swizzled panels of 64 x 64 elements, a
-    ring of 8 weight stages of 32 x 128, the residual [64][D + 8], the
-    rows' LayerNorm statistics and 24 mbarriers. The rows route (float32 at
-    64, 32 or 16 rows; bfloat16 wider than 256 at 32), in the stream
-    type: the residual and LayerNorm tiles [rows][D + 8], the 4D-wide buffer
-    [rows][4D + 8] and one weight k-tile [32][128 + 8]."""
+    rows. The wgmma and cluster routes (bfloat16, D <= 256, 64 rows; a
+    cluster block holds 64 rows of its image in the same layout): up to
+    1024 bytes of alignment, the wide buffer as swizzled panels of 64 x 64
+    elements, a ring of 8 weight stages of 32 x 128, the residual
+    [64][D + 8], the rows' LayerNorm statistics and 24 mbarriers. The rows
+    route (float32 at 64, 32 or 16 rows; bfloat16 wider than 256 at 32), in
+    the stream type: the residual and LayerNorm tiles [rows][D + 8], the
+    4D-wide buffer [rows][4D + 8] and one weight k-tile [32][128 + 8]."""
     if dtype == torch.bfloat16 and d <= _WGMMA_MAX_D:
         if rows != 64:
             raise ValueError("the bfloat16 kernel holds 64 rows a block at "
@@ -229,12 +231,30 @@ def _block_row_choices(dtype: torch.dtype, d: int) -> tuple:
     return (64, 32, 16)
 
 
+def block_cluster(dtype: torch.dtype, t: int, d: int) -> int:
+    """Blocks that hold one image: ceil(T / 64), 2 to 4, on the cluster
+    route (bfloat16, D <= 256, 64 < T <= 256: one thread-block cluster an
+    image, 64 rows a block); 1 on every other route. Raises for a bfloat16
+    image past the cluster route's 256 tokens at D <= 256."""
+    if dtype != torch.bfloat16 or d > _WGMMA_MAX_D or t <= 64:
+        return 1
+    if t > 64 * _MAX_CLUSTER:
+        raise ValueError(f"fused_dit_block: an image of {t} tokens x {d} in "
+                         f"{dtype} exceeds the cluster route's limit of "
+                         f"{64 * _MAX_CLUSTER} tokens ({_MAX_CLUSTER} "
+                         f"blocks of 64 rows)")
+    return -(-t // 64)
+
+
 def block_rows(dtype: torch.dtype, t: int, d: int) -> int:
-    """Token rows a fused_dit_block block holds (whole images of T rows),
-    which also names the route: in bfloat16 64 (one warpgroup's wgmma M) up
-    to D = 256, past it the rows route at the larger of 32 and 16 whose
-    tile fits in shared memory; in float32 the largest of 64, 32, 16 that
-    fits. Raises if no tile holds one image."""
+    """Token rows a fused_dit_block block holds (whole images of T rows, or
+    on the cluster route 64 rows of one image), which also names the route
+    with :func:`block_cluster`: in bfloat16 64 (one warpgroup's wgmma M) up
+    to D = 256, T <= 256; past D = 256 the rows route at the larger of 32
+    and 16 whose tile fits in shared memory; in float32 the largest of 64,
+    32, 16 that fits. Raises if no route holds one image."""
+    if block_cluster(dtype, t, d) > 1:
+        return 64
     for rows in _block_row_choices(dtype, d):
         if t <= rows and block_smem_bytes(dtype, rows, d) <= _SMEM_LIMIT:
             return rows
@@ -243,19 +263,53 @@ def block_rows(dtype: torch.dtype, t: int, d: int) -> int:
 
 
 def block_route(dtype: torch.dtype, t: int, d: int) -> str:
-    """"wgmma" (the bfloat16 tensor-core kernel) or "rows" (fp32 FMAs over
-    staged k-tiles): the route :func:`block_rows` picks."""
+    """"wgmma" (the bfloat16 tensor-core kernel, whole images a block),
+    "cluster" (the same kernel, one thread-block cluster an image of more
+    than 64 tokens) or "rows" (fp32 FMAs over staged k-tiles): the route
+    :func:`block_rows` and :func:`block_cluster` pick."""
+    if block_cluster(dtype, t, d) > 1:
+        return "cluster"
     rows = block_rows(dtype, t, d)
     return "wgmma" if dtype == torch.bfloat16 and rows == 64 else "rows"
+
+
+def block_grid(dtype: torch.dtype, b: int, t: int, d: int) -> int:
+    """Blocks one launch over B images runs: B x :func:`block_cluster` on
+    the cluster route, else ceil(B / images a block). Each reads every
+    folded weight through L2."""
+    n = block_cluster(dtype, t, d)
+    if n > 1:
+        return b * n
+    return -(-b // (block_rows(dtype, t, d) // t))
 
 
 @functools.cache
 def _block_fn():
     fn = library("fused_dit_block").fused_dit_block_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _clusters_fn():
+    fn = library("fused_dit_block").fused_dit_block_max_clusters
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def block_max_clusters(d: int, n_heads: int, n_cta: int) -> int:
+    """Clusters of ``n_cta`` blocks of the cluster route at width ``d`` the
+    card holds at once (``cudaOccupancyMaxActiveClusters``); 0 means that
+    such a cluster cannot launch. Card only."""
+    out = ctypes.c_int(0)
+    rc = _clusters_fn()(d, d // n_heads, n_cta, ctypes.byref(out))
+    if rc:
+        raise RuntimeError(f"fused_dit_block cluster occupancy query failed: "
+                           f"CUDA error {rc}")
+    return out.value
 
 
 def fused_dit_block(tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2, b2,
@@ -265,10 +319,11 @@ def fused_dit_block(tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2, b2,
 
     Kernel limits: float32 or bfloat16 (every weight in tok's dtype,
     contiguous), D a multiple of 32, head width D / n_heads in (16, 32, 48,
-    64), and one image per block (:func:`block_rows`): T <= 64 in bfloat16
-    up to D = 256 (the wgmma route); past that the rows route, T <= 32 and
-    D <= 576; in float32 T * D small enough for shared memory (T <= 32 at
-    D = 256)."""
+    64), and (:func:`block_rows`, :func:`block_cluster`): in bfloat16 up to
+    D = 256 T <= 64 (the wgmma route, one image per block) or 64 < T <= 256
+    (the cluster route, ceil(T / 64) blocks an image); past that the rows
+    route, T <= 32 and D <= 576; in float32 T * D small enough for shared
+    memory (T <= 32 at D = 256)."""
     no_autodiff("fused_dit_block", tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2,
                 b2)
     _check_stream_tensor("tok", tok)
@@ -277,6 +332,7 @@ def fused_dit_block(tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2, b2,
         raise ValueError(f"fused_dit_block: D={d} must be a multiple of 32 "
                          f"with head width D/n_heads in {_BLOCK_HEAD_DIMS}")
     rows = block_rows(tok.dtype, t, d)
+    n_cta = block_cluster(tok.dtype, t, d)
     for name, w, shape in (("w_qkv", w_qkv, (d, 3 * d)),
                            ("b_qkv", b_qkv, (3 * d,)),
                            ("w_pr", w_pr, (d, d)), ("b_pr", b_pr, (d,)),
@@ -294,7 +350,7 @@ def fused_dit_block(tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2, b2,
     rc = _block_fn()(_DTYPE_CODE[tok.dtype], _ptr(tok), _ptr(w_qkv),
                      _ptr(b_qkv), _ptr(w_pr), _ptr(b_pr), _ptr(w1), _ptr(b1),
                      _ptr(w2), _ptr(b2), _ptr(out), b, t, d, hd, rows,
-                     1.0 / float(hd) ** 0.5, _stream_ptr(tok))
+                     n_cta, 1.0 / float(hd) ** 0.5, _stream_ptr(tok))
     if rc:
         raise RuntimeError(f"fused_dit_block kernel launch failed: CUDA "
                            f"error {rc}")

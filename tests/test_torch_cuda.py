@@ -658,6 +658,50 @@ def test_shapes_gate_dit_cell_launches_the_block_kernel():
     assert out.shape == x.shape and bool(torch.isfinite(out).all())
 
 
+@pytest.mark.parametrize("b,t,d,h", [(64, 256, 256, 8), (64, 128, 256, 8),
+                                     (48, 81, 256, 8), (16, 144, 64, 2),
+                                     (3, 65, 128, 2), (2, 192, 256, 4),
+                                     (5, 200, 96, 2), (1, 256, 256, 16)])
+def test_block_kernel_cluster_route(b, t, d, h):
+    """K1's cluster route, bf16 images of 65-256 tokens at D <= 256 (the
+    reference's dit_p4_d256_l8 at 256 tokens; clusters of 2, 3 and 4
+    blocks; a last block of 1, 17 or 8 rows; heads of 16, 32, 48 and 64):
+    one launch, 4 bf16 ulps of the scale from its plain version."""
+    assert kernels.block_route(torch.bfloat16, t, d) == "cluster"
+    args = _block_args(b, t, d, torch.bfloat16, seed=b + t + d)
+    n0 = kernels.fused_dit_block.launches
+    got = kernels.fused_dit_block(*args, h)
+    assert kernels.fused_dit_block.launches == n0 + 1
+    ref = kernels.fused_dit_block_ref(*args, h)
+    torch.cuda.synchronize()
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(
+        torch.bfloat16, ref, 2e-4)
+
+
+@pytest.mark.parametrize("n_cta", [2, 3, 4])
+def test_block_kernel_clusters_fit_the_card(n_cta):
+    """A cluster of 2, 3 or 4 blocks of ~227 KB of shared memory each
+    launches: the card holds at least one at once."""
+    assert kernels.block_max_clusters(256, 8, n_cta) >= 1
+
+
+def test_shapes_gate_dit_p4_cell_launches_the_block_kernel():
+    """The reference's dit_p4_d256_l8 candidate (256 tokens an image, the
+    cluster route) served as the gate's cells are: two experts,
+    batch-constant (2, 1) labels, depth 8 x 2 experts launches a step."""
+    _, serve = entry.shapes_gate_model("dit_p4_d256_l8", 64)
+    assert serve.n_tokens == 256
+    trees = [convert.from_flax(convert.init_params(serve, seed=i))
+             for i in range(2)]
+    x = torch.randn(4, 64, 64, 3, device="cuda")
+    n0 = kernels.fused_dit_block.launches
+    out = entry.sample(trees, x, n_steps=2, model=serve,
+                       labels=(torch.tensor([[1], [2]]),))
+    torch.cuda.synchronize()
+    assert kernels.fused_dit_block.launches - n0 == 8 * 2 * 2
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+
+
 def test_wrappers_refuse_autodiff_on_the_card():
     """A CUDA input that requires grad under grad mode, or a forward-mode
     dual, raises before any launch; under no_grad the kernel launches."""

@@ -127,6 +127,79 @@ def test_fused_dit_block_bf16_matches_pallas():
     assert float(np.abs(got - ref).max()) <= 4 * 2.0 ** -8 * scale
 
 
+@pytest.mark.parametrize("b,t,d,h", [(2, 256, 256, 8),   # dit_p4_d256_l8
+                                     (3, 81, 64, 2)])    # a partial block
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_fused_dit_block_ref_matches_jax_long_images(b, t, d, h, use_pallas):
+    """Images of more than 64 tokens (the cluster route's, in bf16 on the
+    card): the plain version in float32 against the Pallas kernel (one
+    256-row program an image) and its XLA fallback, to the JAX tests' own
+    2e-4. The float32 kernel takes no such image, on either device."""
+    args = _block_args(np.random.default_rng(b + t + d), b, t, d)
+    ref = np.asarray(pk.fused_dit_block(*map(jnp.asarray, args), h,
+                                        use_pallas=use_pallas))
+    got = kernels.fused_dit_block_ref(*map(torch.from_numpy, args),
+                                      h).numpy()
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.fused_dit_block(*map(torch.from_numpy, args), h)
+
+
+def test_fused_dit_block_bf16_long_image_matches_pallas():
+    """bf16 at the shapes gate's dit_p4_d256_l8 shape, 256 tokens at
+    D = 256: the plain version against the Pallas kernel's bf16 rounding
+    sites to 4 bf16 ulps of the output scale (as at the serving shape), and
+    the wrapper on CPU tensors returns the plain version bit for bit."""
+    args = _block_args(np.random.default_rng(5), 2, 256, 256, scale=0.06)
+    ref = np.asarray(pk.fused_dit_block(
+        *(jnp.asarray(a, jnp.bfloat16) for a in args), 8,
+        use_pallas=True).astype(jnp.float32))
+    targs = [torch.from_numpy(a).bfloat16() for a in args]
+    plain = kernels.fused_dit_block_ref(*targs, 8)
+    got = plain.float().numpy()
+    assert float(np.abs(got - ref).max()) <= \
+        4 * 2.0 ** -8 * float(np.abs(ref).max())
+    wrapped = kernels.fused_dit_block(*targs, 8)
+    assert wrapped.dtype == torch.bfloat16
+    assert torch.equal(wrapped, plain)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("t", [65, 81, 128, 192, 256])
+def test_block_cluster_route(t, d):
+    """bf16 images of 65-256 tokens at D <= 256 take the cluster route:
+    ceil(T / 64) blocks of 64 rows an image, each in the wgmma route's
+    shared-memory layout, B x n blocks a launch."""
+    n = -(-t // 64)
+    assert kernels.block_route(torch.bfloat16, t, d) == "cluster"
+    assert kernels.block_cluster(torch.bfloat16, t, d) == n
+    assert kernels.block_rows(torch.bfloat16, t, d) == 64
+    assert kernels.block_grid(torch.bfloat16, 64, t, d) == 64 * n
+    nbytes = kernels.block_smem_bytes(torch.bfloat16, 64, d)
+    assert nbytes == (1024 + 4 * d // 64 * 8192 + 8 * 8192
+                      + 64 * (d + 8) * 2 + 512 + 192)
+    assert nbytes <= 232448
+    # the one-block routes keep one block an image or less
+    assert kernels.block_cluster(torch.bfloat16, 64, d) == 1
+    assert kernels.block_route(torch.bfloat16, 64, d) == "wgmma"
+    assert kernels.block_grid(torch.bfloat16, 64, 16, d) == 16
+    assert kernels.block_cluster(torch.float32, 16, d) == 1
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_block_cluster_route_limit(d):
+    """Past 256 tokens (a cluster of 4 blocks) a bf16 image raises before
+    the CPU branch, naming the limit; so does the wrapper."""
+    for helper in (kernels.block_cluster, kernels.block_rows,
+                   kernels.block_route):
+        with pytest.raises(ValueError, match="limit of 256 tokens"):
+            helper(torch.bfloat16, 257, d)
+    args = [torch.from_numpy(a).bfloat16() for a in
+            _block_args(np.random.default_rng(d), 1, 257, d)]
+    with pytest.raises(ValueError, match="limit of 256 tokens"):
+        kernels.fused_dit_block(*args, d // 32)
+
+
 @pytest.mark.parametrize("dtype,t,d,rows", [
     (torch.bfloat16, 4, 256, 64), (torch.bfloat16, 49, 256, 64),
     (torch.float32, 4, 256, 32), (torch.float32, 16, 64, 64),

@@ -286,6 +286,49 @@ def test_folded_dit_p8_matches_flax(dtype):
     assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_folded_dit_p4_matches_flax(dtype):
+    """The gate's dit_p4 family (patch 4, one 3-class slot, 3 channels) at
+    36 x 36, 81 tokens (two 64-row blocks an image on the card: the
+    cluster route, and a partial last block), narrowed to dim 64 with heads
+    of 32 and depth 2, folded as the gate serves it. bf16, through
+    ``fused_dit_block`` (its plain version on the CPU): against the JAX
+    folded path to 4 bf16 ulps of the scale. float32, which the kernel
+    takes only up to 64 tokens at this width (the wrapper raises, as on
+    the card): the folded path with ``fused_block=False`` against the flax
+    forward to 1e-5 of the output scale."""
+    kw = dict(patch=4, dim=64, depth=2, n_heads=2, in_channels=3,
+              num_classes=(3,))
+    cfg = DiT(**kw, img_size=36, dtype=dtype)
+    tree = convert.init_params(cfg, seed=9)
+    x = np.random.default_rng(10).standard_normal((3, 36, 36, 3)).astype(
+        np.float32)
+    t, lab = np.array([0.61], np.float32), np.array([1], np.int32)
+    if dtype is None:
+        ref = JaxDiT(**kw).apply(_jtree(tree), jnp.asarray(x),
+                                 jnp.full((3,), 0.61), jnp.full((3,), 1))
+    else:
+        ref = jfold(JaxDiT(**kw, dtype=jnp.bfloat16))(
+            _jtree(tree), jnp.asarray(x, jnp.bfloat16),
+            jnp.asarray(t, jnp.bfloat16), jnp.asarray(lab))
+    ref = np.asarray(ref, np.float32)
+    p = convert.from_flax(tree)
+    xt = torch.from_numpy(x)
+    if dtype is not None:
+        p = train.tree_map(lambda a: a.to(dtype), p)
+        xt = xt.to(dtype)
+    args = (p, xt, torch.from_numpy(t).to(xt.dtype), torch.from_numpy(lab))
+    if dtype is None:
+        with pytest.raises(ValueError, match="81 tokens"):
+            make_folded_apply(cfg)(*args)
+        got = make_folded_apply(cfg, fused_block=False)(*args)
+    else:
+        got = make_folded_apply(cfg)(*args)
+    got = got.float().numpy()
+    tol = 1e-5 if dtype is None else 4 * BF16_ULP
+    assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
+
+
 def test_dit_flop_count():
     """The counted figure reproduces the flagship's 4.377 GFLOP a sampled
     image (3 experts x 50 steps), and counts the shapes gate's candidate:
@@ -456,6 +499,41 @@ def test_shapes_judge_matches_the_script(sanity_reports, tmp_path):
     assert entry.shapes_baseline("unet64", reps) is base
     with pytest.raises(ValueError, match="baseline 'dit' not found"):
         entry.shapes_baseline("dit", reps)
+
+
+@pytest.mark.parametrize("img", [36, 64])
+def test_shapes_gate_serves_dit_p4(img, tmp_path, monkeypatch):
+    """``quality_gate_shapes`` with the reference's dit_p4_d256_l8 at full
+    width (D 256, depth 8, 8 heads) on images of 81 and 256 tokens, the
+    other sizes at their least, against a baseline report read from a
+    file: it trains the experts, serves every cell through
+    ``fused_dit_block`` (8 blocks x 2 experts a step, on its images of T
+    tokens) and returns a report with a verdict. The baseline's numbers
+    lie far from every threshold, so no pass is escalated."""
+    from composable_diffusion_models_tpu_torch.models import dit
+    base = tmp_path / "quality_shapes_unet64.json"
+    base.write_text(json.dumps({"config": "unet64", "composed": {
+        "joint_mean": 3.0, "joint_min": 3.0, "diversity_mean": 1e-9,
+        "diversity_min": 1e-9, "fid_probe": 1e-9}}))
+    shapes, orig = [], dit.fused_dit_block
+
+    def record(tok, *args):
+        shapes.append(tuple(tok.shape))
+        return orig(tok, *args)
+    monkeypatch.setattr(dit, "fused_dit_block", record)
+    reps = entry.quality_gate_shapes(
+        configs="dit_p4_d256_l8", baseline=str(base), train_steps=1,
+        batch_size=2, probe_steps=1, samples_per_cell=2, n_steps=1, img=img,
+        data_n=16, out=str(tmp_path), device="cpu")
+    rep = reps["dit_p4_d256_l8"]
+    assert rep["verdict"] in ("PASS", "FAIL")
+    assert rep["baseline_config"] == "unet64" and "escalation" not in rep
+    assert set(rep["cells"]) == {f"{s},{c}" for s in range(3)
+                                 for c in range(3)}
+    assert all(math.isfinite(v) for v in rep["composed"].values())
+    assert shapes == [(2, (img // 4) ** 2, 256)] * (9 * 8 * 2)
+    assert json.loads((tmp_path / "quality_shapes_dit_p4_d256_l8_s1.json")
+                      .read_text()) == json.loads(json.dumps(rep))
 
 
 def test_shapes_entry_points_default_to_cuda(monkeypatch):
