@@ -6,9 +6,12 @@
     python3 compare_builds.py compare TAG_A TAG_B [TAG ...]
 
 ``run`` builds the package found in the working directory, feeds its
-``fused_dit_block`` (the DiT serving shape, both dtypes) and its
-``flash_attention`` (path B's three sites, strided and contiguous, both
-dtypes) the same seeded inputs as every other run, and saves a SHA-256 of
+``fused_dit_block`` (the DiT serving shape, both dtypes; in bf16 also its
+64-token shape, the ``rows`` route's (256, 4, 384) and the ``cluster``
+route's four shapes), its ``short_seq_attention`` (the serving, frontier
+and profile_dit shapes, both dtypes) and its ``flash_attention`` (path B's
+three sites, strided and contiguous, both dtypes) the same seeded inputs
+as every other run, and saves a SHA-256 of
 each output's bytes and three device times a call (``chip_smoke.device_ms``)
 to ``builds_TAG.pt`` in the git-ignored build directory of the package
 beside this script. ``compare`` prints, for
@@ -33,6 +36,10 @@ import chip_smoke as cs  # noqa: E402
 OUT = os.path.join(HERE, "composable_diffusion_models_tpu_torch", "build")
 FA_SITES = [cs.FA_MAIN, (3 * cs.B_BATCH, 4, 196, 2, 32),
             (3 * cs.B_BATCH, 4, 49, 2, 64)]
+# (B, T, D, heads): fused_dit_block in bf16 past the serving shape, and
+# short_seq_attention's shapes
+K1_BF16 = [cs.SG_K1, cs.K1_FRONTIER[0], *cs.K1_CLUSTER]
+K2_SHAPES = [cs.MAIN, cs.K2_FRONTIER, cs.K_PROFILE]
 
 
 def device_ms(fn) -> float:
@@ -59,6 +66,22 @@ def run(tag: str) -> None:
         outs[key] = kernels.fused_dit_block(*args, h)
         times[key] = [device_ms(lambda: kernels.fused_dit_block(*args, h))
                       for _ in range(3)]
+    for b, t, d, h in K1_BF16:
+        args = cs.block_inputs(b, t, d, torch.bfloat16, gen)
+        key = (f"fused_dit_block bfloat16 {(b, t, d, h)} "
+               f"{kernels.block_route(torch.bfloat16, t, d)}")
+        outs[key] = kernels.fused_dit_block(*args, h)
+        times[key] = [device_ms(lambda: kernels.fused_dit_block(*args, h))
+                      for _ in range(3)]
+    gen = torch.Generator().manual_seed(1)
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, t, d, h in K2_SHAPES:
+            qkv = torch.randn(b, t, 3 * d, generator=gen).to("cuda", dtype)
+            key = f"short_seq_attention {str(dtype)[6:]} {(b, t, 3 * d, h)}"
+            outs[key] = kernels.short_seq_attention(qkv, h)
+            times[key] = [device_ms(
+                lambda: kernels.short_seq_attention(qkv, h))
+                for _ in range(3)]
     gen = torch.Generator().manual_seed(2)
     for dtype in (torch.float32, torch.bfloat16):
         for b, h, nq, nk, d in FA_SITES:

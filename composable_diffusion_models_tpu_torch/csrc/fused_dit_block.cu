@@ -79,28 +79,46 @@
 // one token row at a time, so an image is cut into n = ceil(T / 64) blocks
 // of 64 consecutive rows, launched as one thread-block cluster of n
 // (cudaLaunchKernelEx, cluster dimension (n, 1, 1), grid B * n). Each block
-// is the wgmma kernel above on its 64 rows, its layout unchanged (rows past
-// T in the last block are zero on load and never stored). Attention is the
-// only step that mixes rows: a consumer thread owns one (query, head) pair
-// of its block's rows and walks the image's keys 0 .. T - 1, key j in
-// cluster rank j / 64 at row j % 64, reading the peers' K and V through
-// distributed shared memory (the peer's generic address from mapa, at the
-// same sw_off). Two cluster barriers (barrier.cluster arrive.release /
+// is the wgmma kernel above on its 64 rows (rows past T in the last block
+// are zero on load and never stored), its wide buffer grown where needed
+// so that four 8 KB staging panels lie past the 3D columns of qkv.
+// Attention, the only step that mixes rows, runs on the tensor cores as
+// the TPU kernel's does on the MXU: the two consumer warpgroups take the
+// heads in turn, and per head S = Q_h K^T and O = P V_h are wgmma products
+// of the block's 64 query rows against 64-key chunks of the image's K and
+// V, which each warpgroup moves, chunk by chunk and one chunk ahead, from
+// the cluster's blocks (16-byte loads through distributed shared memory,
+// the peer's address from mapa) into its own two staging panels, since
+// wgmma reads no distributed shared memory (cluster_attention). Keys past
+// T are -inf before the max. Numerics: fp32 scores from the tensor cores,
+// exp(s - max) / sum in fp32 (expf), probabilities rounded to bf16 before
+// the value product, fp32 accumulation and one rounding; the score and
+// value sums run in the tensor cores' order, the row sums over the row's
+// four lanes. Two cluster barriers (barrier.cluster arrive.release /
 // wait.acquire, every thread of the cluster arriving at each):
 //   1. after the qkv epilogue: every block's K and V are in place;
 //   2. arrived after attention, waited for before the W1 epilogue writes
-//      over Q[:, 0:4D]: no peer still reads this block's K and V, and no
-//      block exits while a peer reads its shared memory.
-// The producer warpgroup arrives at both too: at barrier 1 when it starts
-// (it publishes nothing), and at barrier 2 after waiting for barrier 1,
-// which it does before its first W1 tile, once every qkv and proj tile is
-// in the ring: the tiles it waits on a free stage for until then are all
-// consumed before the consumers wait at barrier 2, so neither side waits
-// for the other in a circle. Its numerics are the wgmma kernel's and
-// attend_query's. What bounds it: every block still reads all 12 D^2
-// weights through L2 (1.57 MB x B * n blocks: 403 MB at the gate's 64
-// images of 256 tokens), and attention walks 256 keys three times per
-// (query, head), a quarter of them from its own block.
+//      over Q[:, 0:4D]: no peer still reads this block's K and V.
+// The peers' reads are the staging loads of attention, and each is
+// complete (its value stored into the reader's own panel) before the
+// reader arrives at barrier 2; a block's last access to a peer comes
+// before that arrival, and no block passes barrier 2, let alone exits,
+// before every block has arrived, so none exits while a peer still reads
+// its shared memory. The producer warpgroup arrives at both too: at
+// barrier 1 when it starts (it publishes nothing), and at barrier 2 after
+// waiting for barrier 1, which it does before its first W1 tile, once
+// every qkv and proj tile is in the ring: the tiles it waits on a free
+// stage for until then are all consumed before the consumers wait at
+// barrier 2, so neither side waits for the other in a circle. What bounds
+// it now (an H100 80GB HBM3 at 700 W): the waves and, within one, what
+// holds the one-block route. One block an SM and 30 clusters of 4 at once,
+// so the gate's 64 images of 256 tokens (256 blocks) run in 3 waves of
+// ~0.18 ms: 0.545 ms against 2.21 ms for the first design's scalar walk
+// and 1.93 ms for the plain version. A wave of 64 blocks takes as long as
+// one of 120 (0.183 / 0.182 ms), though every block reads all 12 D^2
+// weights through L2 (1.57 MB a block, 403 MB a launch at the gate's
+// shape): the weight stream does not hold it, so the ring is not
+// multicast to the cluster (TMA multicast would cut the L2 reads 4x).
 //
 // The rows route is a second, synchronous kernel: fp32 FMAs on the CUDA
 // cores over one staged weight k-tile at a time, 8 warps, a tile of 16, 32
@@ -421,17 +439,6 @@ __device__ __forceinline__ void* cluster_map(void* p, int rank) {
   return reinterpret_cast<void*>(out);
 }
 
-// The rows 0 .. T - 1 of one image held by a cluster: row r is row r % 64
-// of block r / 64's swizzled wide buffer, at the offset that `base` has in
-// this block
-struct ClusterTile {
-  unsigned char* base;
-  __device__ __forceinline__ bf16* at(int r, int c) const {
-    return static_cast<bf16*>(
-        cluster_map(base + sw_off(r % MT16, c), r / MT16));
-  }
-};
-
 // The ring: stage s is STAGE_BYTES at stage0 + s * STAGE_BYTES. Producer
 // and consumers count the same tiles t = 0, 1, ...; tile t lives in stage
 // t % STAGES in round t / STAGES. empty[s] completes a phase each time the
@@ -680,11 +687,190 @@ __device__ void gemm_wgmma(const Consumer& me,
   }
 }
 
+// Barrier over the 128 threads of consumer warpgroup wg
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(WG) : "memory");
+}
+
+// One head's K or V over the 64 rows of one block of the cluster, as a
+// consumer warpgroup moves it into its own shared memory: loaded from the
+// block's swizzled wide buffer (16-byte loads through distributed shared
+// memory), stored as 64 key rows of 128 bytes, 128-byte swizzled, the
+// head's HD columns first. Those bytes are both the K-major B of
+// S = Q K^T and the MN-major B of P V (see hopper.cuh).
+template <int HD>
+struct HeadChunk {
+  static constexpr int VPR = HD / 8;           // 16-byte vectors a key row
+  static constexpr int PER = MT16 * VPR / WG;  // vectors a thread moves
+  static_assert(MT16 * VPR % WG == 0, "a chunk is whole vectors a thread");
+  uint4 v[PER];
+  // columns col0 .. col0 + HD - 1 of the rows of cluster block `rank`
+  __device__ __forceinline__ void load(unsigned char* q, int rank, int col0,
+                                       int t) {
+    const unsigned char* src =
+        static_cast<const unsigned char*>(cluster_map(q, rank));
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = t + WG * i, r = idx / VPR, e = idx % VPR;
+      v[i] = *reinterpret_cast<const uint4*>(src + sw_off(r, col0 + 8 * e));
+    }
+  }
+  __device__ __forceinline__ void store(unsigned char* buf, int t) const {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = t + WG * i, r = idx / VPR, e = idx % VPR;
+      *reinterpret_cast<uint4*>(buf + sw128_chunk(r, e)) = v[i];
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The cluster route's attention, by one consumer warpgroup: heads wg,
+// wg + 2, ... for the block's 64 query rows over the image's n_tok keys,
+// which n_cta blocks of 64 rows hold. A head walks 4 n_cta chunks of 64
+// keys, each moved into one of the warpgroup's two staging panels at
+// `stage` while the tensor cores work on the chunk in the other: K of
+// blocks 0 .. n_cta - 1 twice, then K and V of each block in turn. Per K
+// chunk, S = Q_h K^T by m64n64k16 wgmma (Q_h read in place from the wide
+// buffer, K-major), fp32 accumulators, times the scale, keys past n_tok
+// -inf. The first pass takes the rows' max, the second their sum of
+// exp(s - max), the third p = bf16(exp(s - max) / sum) as the A fragments
+// of O += P V_h (m64n64k16 wgmma, P from registers, V MN-major; at heads
+// narrower than 64 the columns past HD are computed and dropped), and O
+// is rounded once to bf16 over Q_h. Recomputing S (the same products on
+// the same operands, so the same values) keeps one chunk of scores in
+// registers rather than the whole row of up to 256. A row's max and sum
+// meet over the four lanes that hold it. Every block's K and V are in
+// place (cluster barrier 1) when this starts.
+template <int HD>
+__device__ void cluster_attention(const Consumer& me, unsigned char* Q,
+                                  unsigned char* stage, int n_cta, int n_tok,
+                                  int d, float scale) {
+  const int n_heads = d / HD;
+  if (me.wg >= n_heads) return;
+  const int t = (threadIdx.x - WG) % WG;
+  const int walk = 4 * n_cta;  // chunks of one head
+  const uint32_t q_addr = smem_u32(Q), st_addr = smem_u32(stage);
+  HeadChunk<HD> next;
+  // chunk i of head h's walk into panel p
+  const auto fetch = [&](int h, int i, int p) {
+    const bool v = i >= 2 * n_cta && ((i - 2 * n_cta) & 1);
+    const int c = i < 2 * n_cta ? i % n_cta : (i - 2 * n_cta) >> 1;
+    next.load(Q, c, (v ? 2 : 1) * d + h * HD, t);
+    next.store(stage + p * PANEL_BYTES, t);
+    fence_proxy_async();  // written by threads, read by wgmma
+  };
+  fetch(me.wg, 0, 0);
+  warpgroup_sync(me.wg);
+  int item = 0;  // chunks walked; chunk `item` sits in panel item % 2
+  const int r = me.warp * 16 + me.lane / 4;  // rows r and r + 8
+  for (int h = me.wg; h < n_heads; h += 2) {
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    float oacc[32];
+    uint32_t pf[4][4];  // P of the chunk; k16 step kk: blocks 2 kk, 2 kk + 1
+    for (int i = 0; i < walk; ++i, ++item) {
+      const int pass = i < n_cta ? 0 : i < 2 * n_cta ? 1 : 2;
+      const bool pv = pass == 2 && ((i - 2 * n_cta) & 1);
+      const int c = pass < 2 ? i % n_cta : (i - 2 * n_cta) >> 1;
+      const uint32_t buf = st_addr + (item & 1) * PANEL_BYTES;
+      float sc[32];
+      wgmma_fence();
+      if (pv) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<64>::rs<1>(oacc, pf[kk][0], pf[kk][1], pf[kk][2], pf[kk][3],
+                           sw128_desc(buf + kk * 16 * 128, PANEL_BYTES), 1);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int col = h * HD + 16 * kk;
+          Wgmma<64>::ss<0, 0>(
+              sc,
+              sw128_desc(q_addr + (col >> 6) * PANEL_BYTES + (col & 63) * 2,
+                         16),
+              sw128_desc(buf + kk * 32, 16), kk > 0);
+        }
+      }
+      wgmma_commit();
+      // the next chunk of the walk, or the first of this warpgroup's next
+      // head, into the other panel while the product runs
+      if (i + 1 < walk) fetch(h, i + 1, (item + 1) & 1);
+      else if (h + 2 < n_heads) fetch(h + 2, 0, (item + 1) & 1);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        asm volatile("" : "+f"(oacc[k])::"memory");
+        asm volatile("" : "+f"(sc[k])::"memory");
+      }
+      warpgroup_sync(me.wg);
+      if (pv) continue;
+      // registers 4 j + e: row r, key 64 c + 8 j + 2 (lane % 4) + e; 4 j +
+      // 2 + e: row r + 8, the same key
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in = MT16 * c + 8 * j + 2 * (me.lane % 4) + e < n_tok;
+          const float s0 = in ? sc[4 * j + e] * scale : -INFINITY;
+          const float s1 = in ? sc[4 * j + 2 + e] * scale : -INFINITY;
+          if (pass == 0) {
+            m0 = fmaxf(m0, s0);
+            m1 = fmaxf(m1, s1);
+          } else if (pass == 1) {
+            l0 += expf(s0 - m0);
+            l1 += expf(s1 - m1);
+          } else {
+            sc[4 * j + e] = expf(s0 - m0) / l0;
+            sc[4 * j + 2 + e] = expf(s1 - m1) / l1;
+          }
+        }
+      }
+      if (pass == 2) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* s = &sc[8 * kk];
+          pf[kk][0] = pack_bf16(s[0], s[1]);
+          pf[kk][1] = pack_bf16(s[2], s[3]);
+          pf[kk][2] = pack_bf16(s[4], s[5]);
+          pf[kk][3] = pack_bf16(s[6], s[7]);
+        }
+      } else if (i == n_cta - 1) {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+        }
+      } else if (i == 2 * n_cta - 1) {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+          l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+        }
+#pragma unroll
+        for (int k = 0; k < 32; ++k) oacc[k] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = h * HD + 8 * j + 2 * (me.lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(Q + sw_off(r, col)) =
+          __floats2bfloat162_rn(oacc[4 * j], oacc[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(Q + sw_off(r + 8, col)) =
+          __floats2bfloat162_rn(oacc[4 * j + 2], oacc[4 * j + 3]);
+    }
+  }
+}
+
 // afrag = bf16(LN(X)) for the 64 rows as this thread's wgmma A fragments,
 // k-step kk in afrag[4 kk .. 4 kk + 3]. The rows' statistics go through
 // stats[0..63] (mean) and stats[64..127] (1 / sqrt(var + eps)), four
 // consumer threads per row. X is complete when this is called; the GEMM
 // that follows does not write it.
+template <bool CLUSTER>
 __device__ void layer_norm16(const Consumer& me, const bf16* X, int ldx,
                              int d, float* stats,
                              uint32_t (&afrag)[A_REGS]) {
@@ -723,6 +909,9 @@ __device__ void layer_norm16(const Consumer& me, const bf16* X, int ldx,
         __floats2bfloat162_rn((v.x - mu) * inv, (v.y - mu) * inv);
     return *reinterpret_cast<const uint32_t*>(&y);
   };
+  // on the cluster route every fragment is written, zeros past D, so that
+  // none lives on from one GEMM's LN(x) to the next: the cluster's
+  // attention has the registers between
 #pragma unroll
   for (int kk = 0; kk < MAX_D / 16; ++kk) {
     if (kk * 16 < d) {
@@ -731,28 +920,43 @@ __device__ void layer_norm16(const Consumer& me, const bf16* X, int ldx,
       afrag[4 * kk + 1] = norm2(X + r1 * ldx + c, mu1, inv1);
       afrag[4 * kk + 2] = norm2(X + r0 * ldx + c + 8, mu0, inv0);
       afrag[4 * kk + 3] = norm2(X + r1 * ldx + c + 8, mu1, inv1);
+    } else if (CLUSTER) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) afrag[4 * kk + k] = 0u;
     }
   }
 }
 
 __host__ __device__ constexpr int panels(int cols) { return (cols + 63) / 64; }
 
+// Panels of the wide buffer: 4D columns; on the cluster route at least
+// the 3D columns of qkv and, beyond them, the attention's staging panels
+// (two for each consumer warpgroup), which are free until the W1 epilogue
+__host__ __device__ constexpr int wide_panels(int d, bool cluster) {
+  return cluster && panels(3 * d) + 4 > panels(4 * d) ? panels(3 * d) + 4
+                                                      : panels(4 * d);
+}
+
 // Shared memory of one bf16 block, in bytes: up to 1024 to align the
 // panels, the wide buffer as panels, the ring, X [64][D + PAD], the rows'
 // LayerNorm statistics, 3 * STAGES mbarriers.
-__host__ __device__ constexpr size_t smem_bytes_bf16(int d) {
-  return 1024 + (size_t)panels(4 * d) * PANEL_BYTES +
+__host__ __device__ constexpr size_t smem_bytes_bf16(int d, bool cluster) {
+  return 1024 + (size_t)wide_panels(d, cluster) * PANEL_BYTES +
          (size_t)STAGES * STAGE_BYTES + (size_t)MT16 * (d + PAD) * 2 +
          2 * MT16 * sizeof(float) + 3 * STAGES * 8;
 }
-static_assert(smem_bytes_bf16(MAX_D) <= 232448, "a block's shared memory");
+static_assert(smem_bytes_bf16(MAX_D, true) <= 232448,
+              "a block's shared memory");
+static_assert(smem_bytes_bf16(MAX_D - KT, true) <= 232448,
+              "a block's shared memory");
 
 // tile: the images a block holds (whole images of n_tok <= 64 rows), or,
-// launched as clusters for images of n_tok > 64, the blocks of one image
-// (the cluster's size). One kernel serves both routes: the cluster's
-// steps sit behind a flag that is uniform over the launch, so its GEMMs
-// are compiled once.
-template <int HD>
+// launched as clusters (CLUSTER) for images of n_tok > 64, the blocks of
+// one image (the cluster's size). The two routes are two instantiations:
+// compiled into one kernel, the cluster's attention took registers from
+// the one-block route's code, which then ran 4% slower at the serving
+// shape on an H100.
+template <int HD, bool CLUSTER>
 __global__ void __launch_bounds__(THREADS16, 1)
 fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
                             const bf16* bqkv, const bf16* wpr,
@@ -764,8 +968,9 @@ fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
   // the swizzle is a function of the address: panels start on 1024 bytes
   unsigned char* base =
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  constexpr bool cluster = CLUSTER;
   unsigned char* Q = base;
-  unsigned char* Ws = Q + panels(4 * d) * PANEL_BYTES;
+  unsigned char* Ws = Q + wide_panels(d, cluster) * PANEL_BYTES;
   const int ldx = d + PAD;
   bf16* X = reinterpret_cast<bf16*>(Ws + STAGES * STAGE_BYTES);
   float* stats = reinterpret_cast<float*>(X + MT16 * ldx);
@@ -788,7 +993,7 @@ fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     const Weight gemms[4] = {
         {wqkv, d, 3 * d}, {wpr, d, d}, {w1, d, 4 * d}, {w2, 4 * d, d}};
-    produce_weights(gemms, ring, n_tok > MT16);
+    produce_weights(gemms, ring, cluster);
     return;
   }
 
@@ -796,7 +1001,6 @@ fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
   const int ctid = threadIdx.x - WG;
   const Consumer me;
   const int n_heads = d / HD;
-  const bool cluster = n_tok > MT16;
   // this block's rows of the stream: whole images, or the cluster rank's
   // 64 rows of one image
   int imgs = 1, row0 = 0, rows;
@@ -826,18 +1030,15 @@ fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
   consumer_sync();
 
   // attention half: qkv into Q[:, 0:3D], attention output over Q[:, 0:D]
-  layer_norm16(me, X, ldx, d, stats, afrag);
+  layer_norm16<CLUSTER>(me, X, ldx, d, stats, afrag);
   gemm_wgmma<true>(me, afrag, 0, d, 3 * d, bqkv, ring, at, EpiStore16{Q});
   if (cluster) {
+    fence_proxy_async();  // Q is read by wgmma below
     cluster_arrive();  // barrier 1: every block's K and V are in place
     cluster_wait();
-    // the pairs of this block's rows, a warp's 32 on one head: one key
-    // vector a load for the warp
-    const ClusterTile image{Q};
-    const SwTile mine{Q, -row0};
-    for (int p = ctid; p < rows * n_heads; p += CONSUMERS)
-      attend_query<bf16, HD>(image, mine, row0 + p % rows, p / rows, n_tok,
-                             d, scale);
+    cluster_attention<HD>(
+        me, Q, Q + (panels(3 * d) + 2 * me.wg) * PANEL_BYTES, tile, n_tok, d,
+        scale);
   } else {
     consumer_sync();
     for (int p = ctid; p < imgs * n_heads * n_tok; p += CONSUMERS) {
@@ -855,7 +1056,7 @@ fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
   consumer_sync();
 
   // MLP half: GELU hidden into Q[:, 0:4D]
-  layer_norm16(me, X, ldx, d, stats, afrag);
+  layer_norm16<CLUSTER>(me, X, ldx, d, stats, afrag);
   if (cluster) cluster_wait();  // barrier 2: no peer reads K, V
   gemm_wgmma<true>(me, afrag, 0, d, 4 * d, b1, ring, at, EpiGelu16{Q});
   fence_proxy_async();
@@ -927,7 +1128,7 @@ static cudaLaunchConfig_t cluster_config(const Args& a, int n_cta,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.n_img * n_cta);
   cfg.blockDim = dim3(THREADS16);
-  cfg.dynamicSmemBytes = smem_bytes_bf16(a.d);
+  cfg.dynamicSmemBytes = smem_bytes_bf16(a.d, true);
   cfg.stream = a.stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
@@ -940,12 +1141,12 @@ static cudaLaunchConfig_t cluster_config(const Args& a, int n_cta,
 template <int HD>
 static int launch_bf16_hd(const Args& a, int n_cta, int* max_clusters) {
   if (n_cta == 1)
-    return launch<bf16>(fused_dit_block_bf16_kernel<HD>, THREADS16,
-                        smem_bytes_bf16(a.d), MT16, a);
-  const auto kern = fused_dit_block_bf16_kernel<HD>;
+    return launch<bf16>(fused_dit_block_bf16_kernel<HD, false>, THREADS16,
+                        smem_bytes_bf16(a.d, false), MT16, a);
+  const auto kern = fused_dit_block_bf16_kernel<HD, true>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes_bf16(a.d));
+      (int)smem_bytes_bf16(a.d, true));
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(a, n_cta, attr);

@@ -200,21 +200,27 @@ short_seq_attention.launches = 0
 
 
 # ---------------------------------------------------------- fused_dit_block
-def block_smem_bytes(dtype: torch.dtype, rows: int, d: int) -> int:
+def block_smem_bytes(dtype: torch.dtype, rows: int, d: int,
+                     n_cta: int = 1) -> int:
     """Shared memory of one fused_dit_block block holding ``rows`` token
-    rows. The wgmma and cluster routes (bfloat16, D <= 256, 64 rows; a
-    cluster block holds 64 rows of its image in the same layout): up to
-    1024 bytes of alignment, the wide buffer as swizzled panels of 64 x 64
-    elements, a ring of 8 weight stages of 32 x 128, the residual
-    [64][D + 8], the rows' LayerNorm statistics and 24 mbarriers. The rows
-    route (float32 at 64, 32 or 16 rows; bfloat16 wider than 256 at 32), in
-    the stream type: the residual and LayerNorm tiles [rows][D + 8], the
-    4D-wide buffer [rows][4D + 8] and one weight k-tile [32][128 + 8]."""
+    rows, ``n_cta`` blocks an image. The wgmma and cluster routes
+    (bfloat16, D <= 256, 64 rows): up to 1024 bytes of alignment, the wide
+    buffer as swizzled panels of 64 x 64 elements (4D columns; on the
+    cluster route, n_cta > 1, at least the 3D columns of qkv and four
+    staging panels of attention beyond them), a ring of 8 weight stages of
+    32 x 128, the residual [64][D + 8], the rows' LayerNorm statistics and
+    24 mbarriers. The rows route (float32 at 64, 32 or 16 rows; bfloat16
+    wider than 256 at 32), in the stream type: the residual and LayerNorm
+    tiles [rows][D + 8], the 4D-wide buffer [rows][4D + 8] and one weight
+    k-tile [32][128 + 8]."""
     if dtype == torch.bfloat16 and d <= _WGMMA_MAX_D:
         if rows != 64:
             raise ValueError("the bfloat16 kernel holds 64 rows a block at "
                              f"D <= {_WGMMA_MAX_D}")
-        return (1024 + -(-4 * d // 64) * _PANEL_BYTES
+        panels = -(-4 * d // 64)
+        if n_cta > 1:
+            panels = max(panels, -(-3 * d // 64) + 4)
+        return (1024 + panels * _PANEL_BYTES
                 + _STAGES * _KT * _NC * 2 + rows * (d + _PAD) * 2
                 + 2 * rows * 4 + 3 * _STAGES * 8)
     if rows not in _block_row_choices(dtype, d):

@@ -661,12 +661,17 @@ def test_shapes_gate_dit_cell_launches_the_block_kernel():
 @pytest.mark.parametrize("b,t,d,h", [(64, 256, 256, 8), (64, 128, 256, 8),
                                      (48, 81, 256, 8), (16, 144, 64, 2),
                                      (3, 65, 128, 2), (2, 192, 256, 4),
-                                     (5, 200, 96, 2), (1, 256, 256, 16)])
+                                     (5, 200, 96, 2), (1, 256, 256, 16),
+                                     (4, 100, 192, 4), (3, 255, 256, 4),
+                                     (2, 192, 192, 4), (2, 65, 256, 4),
+                                     (3, 100, 256, 8), (2, 255, 96, 2),
+                                     (5, 65, 192, 4), (2, 192, 224, 7)])
 def test_block_kernel_cluster_route(b, t, d, h):
     """K1's cluster route, bf16 images of 65-256 tokens at D <= 256 (the
     reference's dit_p4_d256_l8 at 256 tokens; clusters of 2, 3 and 4
-    blocks; a last block of 1, 17 or 8 rows; heads of 16, 32, 48 and 64):
-    one launch, 4 bf16 ulps of the scale from its plain version."""
+    blocks; a last block of 1, 17, 8, 36 or 63 rows, its keys masked;
+    heads of 16, 32, 48 and 64, an odd count of them): one launch, 4 bf16
+    ulps of the scale from its plain version."""
     assert kernels.block_route(torch.bfloat16, t, d) == "cluster"
     args = _block_args(b, t, d, torch.bfloat16, seed=b + t + d)
     n0 = kernels.fused_dit_block.launches
@@ -676,6 +681,46 @@ def test_block_kernel_cluster_route(b, t, d, h):
     torch.cuda.synchronize()
     assert float((got.float() - ref.float()).abs().max()) <= _tol(
         torch.bfloat16, ref, 2e-4)
+
+
+# biases that drive the bf16 GELU's x / (1 + exp(-z)) to where it saturates
+_SATURATED = (-100.0, -88.0, -80.0, -12.0, -10.0, -4.0, 4.0, 10.0, 12.0,
+              80.0, 88.0, 100.0)
+
+
+@pytest.mark.parametrize("b,t,d,h", [(4, 256, 256, 8), (3, 100, 192, 4)])
+def test_block_kernel_cluster_route_where_the_gelu_saturates(b, t, d, h):
+    """The cluster route with the MLP's hidden values (unit scale) around
+    each of _SATURATED: 4 bf16 ulps of the scale from its plain version."""
+    args = _block_args(b, t, d, torch.bfloat16, seed=b + t)
+    args[6] = torch.tensor(_SATURATED).repeat(-(-4 * d // 12))[:4 * d].to(
+        "cuda", torch.bfloat16)
+    got = kernels.fused_dit_block(*args, h)
+    ref = kernels.fused_dit_block_ref(*args, h)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(
+        torch.bfloat16, ref, 2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 16, 32, 48, 64])
+@pytest.mark.parametrize("t", [4, 16, 33, 64, 65, 100])
+def test_short_seq_attention_at_every_head_width(t, hd, dtype):
+    """K2 at 4-100 tokens and every head width, 37 images of 3 heads (the
+    first kernel's kept scores at 4 tokens; the staged kernel's blocks of
+    whole images with a ragged last block at 16; the three-pass walk past
+    16): one launch, its plain version's bars (float32 1e-5 of the scale,
+    bf16 4 ulps)."""
+    g = torch.Generator().manual_seed(t * hd)
+    qkv = torch.randn(37, t, 9 * hd, generator=g).to("cuda", dtype)
+    n0 = kernels.short_seq_attention.launches
+    got = kernels.short_seq_attention(qkv, 3)
+    assert kernels.short_seq_attention.launches == n0 + 1
+    ref = kernels.short_seq_attention_ref(qkv, 3)
+    torch.cuda.synchronize()
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(
+        dtype, ref, 1e-5)
 
 
 @pytest.mark.parametrize("n_cta", [2, 3, 4])

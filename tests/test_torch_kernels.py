@@ -169,14 +169,18 @@ def test_fused_dit_block_bf16_long_image_matches_pallas():
 def test_block_cluster_route(t, d):
     """bf16 images of 65-256 tokens at D <= 256 take the cluster route:
     ceil(T / 64) blocks of 64 rows an image, each in the wgmma route's
-    shared-memory layout, B x n blocks a launch."""
+    shared-memory layout with the wide buffer grown, where 4D columns are
+    fewer, to the 3D columns of qkv and four staging panels of attention,
+    B x n blocks a launch."""
     n = -(-t // 64)
     assert kernels.block_route(torch.bfloat16, t, d) == "cluster"
     assert kernels.block_cluster(torch.bfloat16, t, d) == n
     assert kernels.block_rows(torch.bfloat16, t, d) == 64
     assert kernels.block_grid(torch.bfloat16, 64, t, d) == 64 * n
-    nbytes = kernels.block_smem_bytes(torch.bfloat16, 64, d)
-    assert nbytes == (1024 + 4 * d // 64 * 8192 + 8 * 8192
+    assert kernels.block_smem_bytes(torch.bfloat16, 64, d) == (
+        1024 + 4 * d // 64 * 8192 + 8 * 8192 + 64 * (d + 8) * 2 + 512 + 192)
+    nbytes = kernels.block_smem_bytes(torch.bfloat16, 64, d, n)
+    assert nbytes == (1024 + (3 * d // 64 + 4) * 8192 + 8 * 8192
                       + 64 * (d + 8) * 2 + 512 + 192)
     assert nbytes <= 232448
     # the one-block routes keep one block an image or less
@@ -184,6 +188,22 @@ def test_block_cluster_route(t, d):
     assert kernels.block_route(torch.bfloat16, 64, d) == "wgmma"
     assert kernels.block_grid(torch.bfloat16, 64, 16, d) == 16
     assert kernels.block_cluster(torch.float32, 16, d) == 1
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 160, 192, 224, 256])
+def test_block_smem_bytes_cluster_route_fits(d):
+    """The cluster route's block fits at every D it takes: its wide buffer
+    is the wgmma route's 4D columns or, where more, ceil(3D / 64) panels
+    of qkv and four 8 KB staging panels (two for each consumer
+    warpgroup); at D = 256 the two are the same 16 panels."""
+    one = kernels.block_smem_bytes(torch.bfloat16, 64, d)
+    for n in (2, 3, 4):
+        nbytes = kernels.block_smem_bytes(torch.bfloat16, 64, d, n)
+        assert nbytes <= 232448
+        assert nbytes - one == 8192 * max(0, -(-3 * d // 64) + 4
+                                          - 4 * d // 64)
+    assert (kernels.block_smem_bytes(torch.bfloat16, 64, d, 4) == one) == (
+        d == 256)
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
