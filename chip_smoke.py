@@ -35,8 +35,9 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     of ``compose.weighted``'s ops; and every
     kernel at the new shapes of phases 24-27, timed beside its bound and
     the library call: ``fused_dit_block`` in bf16 at the frontier
-    candidates' (256, 4, 384) with heads of 48 (the rows route) and (256,
-    16, 192) with 6 heads, and at (256, 16, 256); ``short_seq_attention``
+    candidates' (256, 4, 384) with heads of 48 (the wide route, also at
+    every cluster size of its tile) and (256, 16, 192) with 6 heads, and
+    at (256, 16, 256); ``short_seq_attention``
     at heads of 48; ``groupnorm_silu`` and its two-part form at the CIFAR
     experts' float32 levels and the unet32 gate's bf16 ones;
     ``flash_attention`` at heads of 160 and 256; and at the profilers'
@@ -224,10 +225,10 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     (BASELINE held), the reports and grids read back, a trained expert's
     eps against ``fused_gn=False`` (bf16 on the mean, float32 per element);
 27. ``frontier.frontier_sweep`` over ``dit_p14_d384_l6`` (heads of 48, K1's
-    rows route) and ``dit_p7_d192_l6_h6`` at one cut budget against the
+    wide route) and ``dit_p7_d192_l6_h6`` at one cut budget against the
     committed ``unet64`` report, the MFU taken from phase 4: exact K1
-    launches per scoring pass, the table read back, each candidate's
-    trained expert against the plain version of K1;
+    launches per scoring pass and its seconds, the table read back, each
+    candidate's trained expert against the plain version of K1;
 28. ``parallel/`` at world 1 over NCCL in this process: the flagship's
     expert-parallel composition (``parallel.sample_expert_parallel``: the
     three full-width bf16 experts, batch 2048, 50 DDIM steps, expert 1 x
@@ -519,7 +520,7 @@ CFG_BATCH, CIFAR_BATCH = 64, 64
 # sample_latent: 1000 steps at batch 64; fit_pca on 8192 images)
 CLI_TRAIN, CLI_LATENT_TRAIN, CLI_SD_BATCH, CLI_CFG_STEPS = 50, 100, 16, 200
 # phase 3 at those phases' new shapes: fused_dit_block at the frontier
-# candidates' bf16 launches (B, T, D, heads) (D 384: the rows route, heads
+# candidates' bf16 launches (B, T, D, heads) (D 384: the wide route, heads
 # of 48; D 192 at 16 tokens) and the flagship's width at 16 tokens;
 # short_seq_attention at heads of 48; groupnorm_silu at the CIFAR experts'
 # float32 levels (batch 64) and the unet32 gate's bf16 levels (batch 256),
@@ -761,7 +762,7 @@ def check_kernels(kernels):
             flops = 2 * b * t * 12 * d * d + 4 * b * t * t * d
             nbytes = es * (2 * b * t * d + 12 * d * d + 9 * d)
             bms, by = bound_ms(flops, nbytes, dtype)
-            blocks = kernels.block_grid(dtype, b, t, d)
+            blocks = kernels.block_grid(dtype, b, t, d, h)
             log(f"  fused_dit_block {str(dtype)[6:]}: kernel {ms:.4f} ms "
                 f"({dev:.4f} ms on the device in a trace), "
                 f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}; "
@@ -2006,8 +2007,11 @@ def k1_at(kernels, b, t, d, h) -> dict:
     """fused_dit_block in bf16 at (B, T, D) with H heads against its plain
     version on the same random inputs, timed by events and from a trace,
     beside its bound, with the blocks a launch runs (each reads every
-    weight through L2) and, on the cluster route, how many clusters the
-    card holds at once; the numbers for the JSON line."""
+    weight through L2, on the wide route an n-th of each) and, on the
+    routes launched as clusters, how many clusters the card holds at once;
+    on the wide route also its device time at every cluster size n that
+    divides the heads (block_split forced), at B and at B / 2 images; the
+    numbers for the JSON line."""
     gen = torch.Generator().manual_seed(16)
     dtype = torch.bfloat16
     args = block_inputs(b, t, d, dtype, gen)
@@ -2022,31 +2026,54 @@ def k1_at(kernels, b, t, d, h) -> dict:
     nbytes = 2 * (2 * b * t * d + 12 * d * d + 9 * d)
     bms, by = bound_ms(flops, nbytes, dtype)
     rows = kernels.block_rows(dtype, t, d)
-    n_cta = kernels.block_cluster(dtype, t, d)
-    blocks = kernels.block_grid(dtype, b, t, d)
-    l2_mb = blocks * 12 * d * d * 2 / 1e6
-    clusters = (kernels.block_max_clusters(d, h, n_cta) if n_cta > 1
-                else None)
+    route = kernels.block_route(dtype, t, d)
+    wide = route == "wide"
+    n_cta = (kernels.block_split(dtype, b, t, d, h) if wide
+             else kernels.block_cluster(dtype, t, d))
+    blocks = kernels.block_grid(dtype, b, t, d, h)
+    per_block = 12 * d * d * 2 / (n_cta if wide else 1) / 1e6
+    l2_mb = blocks * per_block
+    clusters = (kernels.block_max_clusters(d, h, n_cta)
+                if n_cta > 1 or wide else None)
+    by_n = {}
+    if wide:  # the wave model's inputs (ops/kernels.py block_split)
+        for n in (1, 2, 3, 4):
+            if h % n:
+                continue
+            with mock.patch.object(kernels, "block_split", lambda *a, n=n: n):
+                by_n[n] = [device_ms(lambda: kernels.fused_dit_block(
+                    *args, h)), device_ms(lambda: kernels.fused_dit_block(
+                        *[a[:b // 2] if i == 0 else a
+                          for i, a in enumerate(args)], h))]
+            by_n[n].append(kernels.block_max_clusters(d, h, n))
     log(f"fused_dit_block bf16 B={b} T={t} D={d} H={h} (heads of {d // h}; "
-        f"{kernels.block_route(dtype, t, d)} route, {rows} rows a block"
-        + (f", {n_cta} blocks an image, {clusters} clusters of {n_cta} at "
-           f"once on the card (cudaOccupancyMaxActiveClusters)"
-           if n_cta > 1 else "")
+        f"{route} route, {rows} rows a block"
+        + (f", {n_cta} blocks an image" if n_cta > 1 and not wide else "")
+        + (f", clusters of {n_cta} blocks a tile" if wide else "")
+        + (f", {clusters} clusters of {n_cta} at once on the card "
+           f"(cudaOccupancyMaxActiveClusters)" if clusters else "")
         + f"): max_abs_err={err:.3e} tol={tol:.3e}; kernel {ms:.4f} ms "
         f"({dev:.4f} ms on the device in a trace), plain {plain:.4f} ms, "
         f"bound {bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
-        f"{nbytes / 1e6:.2f} MB); {blocks} blocks each read all "
-        f"{12 * d * d * 2 / 1e6:.2f} MB of weights: {l2_mb:.1f} MB through "
-        f"L2 per launch")
+        f"{nbytes / 1e6:.2f} MB); {blocks} blocks each read "
+        f"{per_block:.2f} MB of weights: {l2_mb:.1f} MB through L2 per "
+        f"launch")
+    if by_n:
+        log("  the wide route's device ms by blocks a tile n (block_split "
+            "forced; at B and B / 2 images; clusters of n at once): " +
+            ", ".join(f"n={n}: {v[0]:.4f} / {v[1]:.4f} ({v[2]})"
+                      for n, v in by_n.items()))
     if not err <= tol:
         fail(f"fused_dit_block disagrees with its plain version at "
              f"{(b, t, d)}")
-    if n_cta > 1 and not clusters:
+    if (n_cta > 1 or wide) and not clusters:
         fail(f"fused_dit_block: no cluster of {n_cta} blocks fits the card")
-    return dict(shape=[b, t, d, h], route=kernels.block_route(dtype, t, d),
+    return dict(shape=[b, t, d, h], route=route,
                 max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
                 bound_ms=bms, bound_by=by, library_ms=None, blocks=blocks,
-                l2_weight_mb=l2_mb, max_active_clusters=clusters)
+                cluster_size=n_cta, l2_weight_mb=l2_mb,
+                max_active_clusters=clusters,
+                device_ms_by_cluster_size=by_n or None)
 
 
 def loss_curve(label: str, losses) -> None:
@@ -3346,13 +3373,19 @@ def frontier_path(card, entry, dit, kernels, attention, mfu: float) -> dict:
     """Phase 27. Returns the launches of the first scoring pass."""
     from composable_diffusion_models_tpu_torch import frontier, gate
     out_dir = os.path.join(SMOKE_OUT, "frontier")
-    records = []
+    records, scored = [], []
     with captured_training(entry) as trained, recorded_grids() as grids, \
             per_call_launches(entry, "_gate_score", kernels, attention,
                               records):
-        table, sec = timed(lambda: frontier.frontier_sweep(
-            candidates=FR_CANDIDATES, budgets=(FR_TRAIN,), out=out_dir,
-            mfu=mfu, probe_steps=FG_PROBE))
+        counted = entry._gate_score
+
+        def named(*a, **kw):
+            scored.append(a[8])  # the configuration a pass scores
+            return counted(*a, **kw)
+        with mock.patch.object(entry, "_gate_score", named):
+            table, sec = timed(lambda: frontier.frontier_sweep(
+                candidates=FR_CANDIDATES, budgets=(FR_TRAIN,), out=out_dir,
+                mfu=mfu, probe_steps=FG_PROBE))
     log(f"frontier_sweep over {FR_CANDIDATES} at one budget of {FR_TRAIN} "
         f"steps (the script's 24000-96000; batch 256, bf16, probe "
         f"{FG_PROBE} steps, {GATE_SAMPLES} samples of 50 DDIM steps a set), "
@@ -3368,6 +3401,10 @@ def frontier_path(card, entry, dit, kernels, attention, mfu: float) -> dict:
             f"{kernels.block_route(torch.bfloat16, model.n_tokens, model.dim)}"
             f" route")
     gate_passes(records, {"fused_dit_block": 6}, "frontier cells (depth 6)")
+    log("  scoring passes in order (a candidate near its threshold is scored "
+        "again with 4x the samples): " + ", ".join(
+            f"{cfg} {sec:.3f} s ({counts['fused_dit_block']} fused_dit_block "
+            f"launches)" for cfg, (counts, sec) in zip(scored, records)))
     for row in table["rows"]:
         log(f"  {row}")
     with open(os.path.join(out_dir, "frontier_table.json")) as f:

@@ -7,17 +7,19 @@
 
 ``run`` builds the package found in the working directory, feeds its
 ``fused_dit_block`` (the DiT serving shape, both dtypes; in bf16 also its
-64-token shape, the ``rows`` route's (256, 4, 384) and the ``cluster``
-route's four shapes), its ``short_seq_attention`` (the serving, frontier
-and profile_dit shapes, both dtypes) and its ``flash_attention`` (path B's
-three sites, strided and contiguous, both dtypes) the same seeded inputs
-as every other run, and saves a SHA-256 of
-each output's bytes and three device times a call (``chip_smoke.device_ms``)
-to ``builds_TAG.pt`` in the git-ignored build directory of the package
-beside this script. ``compare`` prints, for
-each output, whether TAG_A and TAG_B give the same bits (and whether runs
-sharing TAG_A's or TAG_B's prefix agree among themselves), then the median
-device time of every run, in the order given: run parent, change, change,
+64-token shape, the frontier's (256, 4, 384) H 8 and (33, 16, 384) H 6 of
+the bf16 stream past D = 256 and the ``cluster`` route's four shapes; in
+float32 the ``rows`` route at (256, 4, 384) H 8), its
+``short_seq_attention`` (the serving, frontier and profile_dit shapes,
+both dtypes) and its ``flash_attention`` (path B's three sites, strided
+and contiguous, both dtypes) the same seeded inputs as every other run,
+and saves a SHA-256 of each output's bytes, three device times a call
+(``chip_smoke.device_ms``) and K1's route at each shape to
+``builds_TAG.pt`` in the git-ignored build directory of the package
+beside this script. ``compare`` prints, for each output, whether TAG_A
+and TAG_B give the same bits (and whether runs sharing TAG_A's or TAG_B's
+prefix agree among themselves), then the median device time of every run
+beside each run's route, in the order given: run parent, change, change,
 parent, one process each, and compare them in that order.
 """
 
@@ -36,9 +38,11 @@ import chip_smoke as cs  # noqa: E402
 OUT = os.path.join(HERE, "composable_diffusion_models_tpu_torch", "build")
 FA_SITES = [cs.FA_MAIN, (3 * cs.B_BATCH, 4, 196, 2, 32),
             (3 * cs.B_BATCH, 4, 49, 2, 64)]
-# (B, T, D, heads): fused_dit_block in bf16 past the serving shape, and
-# short_seq_attention's shapes
-K1_BF16 = [cs.SG_K1, cs.K1_FRONTIER[0], *cs.K1_CLUSTER]
+# (B, T, D, heads): fused_dit_block in bf16 past the serving shape (with
+# a frontier-width batch that leaves a tile partly empty), in float32 past
+# D = 256, and short_seq_attention's shapes
+K1_BF16 = [cs.SG_K1, cs.K1_FRONTIER[0], (33, 16, 384, 6), *cs.K1_CLUSTER]
+K1_F32 = [cs.K1_FRONTIER[0]]
 K2_SHAPES = [cs.MAIN, cs.K2_FRONTIER, cs.K_PROFILE]
 
 
@@ -57,7 +61,7 @@ def run(tag: str) -> None:
     from composable_diffusion_models_tpu_torch.ops import attention, kernels
     print(tag, os.path.dirname(kernels.__file__), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    outs, times = {}, {}
+    outs, times, routes = {}, {}, {}
     gen = torch.Generator().manual_seed(0)
     b, t, d, h = cs.MAIN
     for dtype in (torch.bfloat16, torch.float32):
@@ -66,13 +70,14 @@ def run(tag: str) -> None:
         outs[key] = kernels.fused_dit_block(*args, h)
         times[key] = [device_ms(lambda: kernels.fused_dit_block(*args, h))
                       for _ in range(3)]
-    for b, t, d, h in K1_BF16:
-        args = cs.block_inputs(b, t, d, torch.bfloat16, gen)
-        key = (f"fused_dit_block bfloat16 {(b, t, d, h)} "
-               f"{kernels.block_route(torch.bfloat16, t, d)}")
-        outs[key] = kernels.fused_dit_block(*args, h)
-        times[key] = [device_ms(lambda: kernels.fused_dit_block(*args, h))
-                      for _ in range(3)]
+    for dtype, shapes in ((torch.bfloat16, K1_BF16), (torch.float32, K1_F32)):
+        for b, t, d, h in shapes:
+            args = cs.block_inputs(b, t, d, dtype, gen)
+            key = f"fused_dit_block {str(dtype)[6:]} {(b, t, d, h)}"
+            routes[key] = kernels.block_route(dtype, t, d)
+            outs[key] = kernels.fused_dit_block(*args, h)
+            times[key] = [device_ms(lambda: kernels.fused_dit_block(
+                *args, h)) for _ in range(3)]
     gen = torch.Generator().manual_seed(1)
     for dtype in (torch.bfloat16, torch.float32):
         for b, t, d, h in K2_SHAPES:
@@ -97,7 +102,7 @@ def run(tag: str) -> None:
         o.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()
         for key, o in outs.items()}
     os.makedirs(OUT, exist_ok=True)
-    torch.save({"digests": digests, "times": times},
+    torch.save({"digests": digests, "times": times, "routes": routes},
                os.path.join(OUT, f"builds_{tag}.pt"))
 
 
@@ -112,7 +117,9 @@ def compare(tags: list) -> None:
               f"outputs)")
     for key in runs[tags[0]]["times"]:
         print(f"{key} device ms: " + " / ".join(
-            f"{x} {sorted(runs[x]['times'][key])[1]:.5f}" for x in tags))
+            f"{x} {sorted(runs[x]['times'][key])[1]:.5f}"
+            + (f" ({runs[x]['routes'][key]})" if key in runs[x]["routes"]
+               else "") for x in tags))
 
 
 if __name__ == "__main__":

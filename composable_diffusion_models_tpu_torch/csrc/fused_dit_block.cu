@@ -120,17 +120,72 @@
 // shape): the weight stream does not hold it, so the ring is not
 // multicast to the cluster (TMA multicast would cut the L2 reads 4x).
 //
-// The rows route is a second, synchronous kernel: fp32 FMAs on the CUDA
-// cores over one staged weight k-tile at a time, 8 warps, a tile of 16, 32
-// or 64 rows with X, LN(x) and the wide buffer [rows][4D + 8] in shared
-// memory, all in the stream type. In float32 it holds the block to its
-// plain version without bf16 rounding. In bfloat16 it serves streams wider
-// than the wgmma kernel's 256 (whose 64-row tile needs 314,048 bytes at
-// D = 384 against the 232,448 a block may use): 32 rows at D = 384 take
-// 157,696 bytes, and the stream fits up to D = 576. Its
-// rounding sites are the wgmma kernel's, its GELU the same fast form; it
-// is simple and slow (scalar GEMMs, every block reading every weight).
-// Head widths 16, 32, 48 and 64 on both routes (attend_query loads a head
+// The rows route is the float32 kernel: fp32 FMAs on the CUDA cores over
+// one staged weight k-tile at a time, 8 warps, a tile of 16, 32 or 64 rows
+// with X, LN(x) and the wide buffer [rows][4D + 8] in shared memory. It
+// holds the block to its plain version without bf16 rounding; only checks
+// run it.
+//
+// The wide route serves bf16 streams wider than the wgmma kernel's 256
+// (the frontier's dit_p14_d384_l6: 4 tokens of 384, heads of 48), whose
+// 64-row tile needs 314,048 bytes at D = 384 against the 232,448 a block
+// may use. A tile is 32 token rows (whole images of T <= 32): X, LN(x)
+// [32][D + 8] and the wide buffer [32][4D + 8], row-major and padded, which
+// leaves room for a weight ring up to D = 576. The tile belongs to one
+// thread-block cluster of n = 1 to 4 blocks (n divides the heads; the
+// wrapper picks it by a wave model, ops/kernels.py block_split), and block
+// r of it computes the r-th n-th of every GEMM's output columns, so it
+// reads an n-th of every weight (the scalar kernel this replaced ran 32
+// blocks at the frontier's batch of 256, each reading all 3.54 MB of
+// weights one synchronous k-tile at a time, with fp32 FMAs).
+//   * qkv: block r computes the q, k and v columns of its H / n heads
+//     (segments of D / n columns at 0, D and 2D, stored past the D columns
+//     of o in the wide buffer) and runs their attention locally
+//     (attend_query: T <= 32 keys need no tensor cores), writing o over
+//     columns r D / n ..;
+//   * it stores its o columns into every peer's wide buffer through
+//     distributed shared memory (the peer's address from mapa); a cluster
+//     barrier; proj computes D / n columns of x += proj(o) + b with K = D,
+//     which go to every peer's X the same way; a barrier; each block takes
+//     LayerNorm of whole rows from its full copy of X;
+//   * W1 computes 4D / n hidden columns (GELU), sent to every peer's wide
+//     buffer; a barrier; W2 computes the block's D / n output columns with
+//     K = 4D, added to X and written straight to device memory.
+// Four cluster barriers (barrier.cluster arrive.release / wait.acquire,
+// every thread of the cluster): 0 is arrived at on entry and waited for
+// before the first store into a peer (every block has started), 1-3 follow
+// the exchanges. A block writes into a peer only columns the peer neither
+// reads nor writes until the barrier after it, and no remote access
+// follows barrier 3, so a block may exit whenever it is done.
+// Warp specialised, 3 warpgroups: the last produces, the first two consume.
+// The weights stream by TMA (one 2-D tensor map a weight, encoded on the
+// host at every launch) in boxes of 32 columns x 64 k-rows (4 KB, 64-byte
+// swizzled, so that the frontier's 96-column head segments need no
+// padding) into a ring of 3 stages of 24 KB (2 of 4 KB at D = 576): a tile
+// is up to 192 columns x 64 k-rows of one GEMM (more rows for a narrower
+// chunk), a full and an empty mbarrier a stage. One warp of the producer
+// issues a tile's boxes as soon as its stage is free, across chunks and
+// GEMMs, so the next GEMM's first tiles land during this one's epilogue,
+// attention and the exchanges. The consumers run the GEMMs on the tensor
+// cores as mma.sync m16n8k16 (bf16 in, fp32 accumulators): warp w holds
+// m16 tile w % 2 of every fourth n8 tile of a chunk (the same count for
+// every warp), A from the padded row-major tiles by ldmatrix, B from the
+// stage by ldmatrix.trans (32 k-rows, two k16 steps, an instruction; the
+// next 32 k-rows' fragments asked for before these products); the padding
+// and the swizzle make every ldmatrix conflict-free. Measured on the way
+// (an H100 80GB HBM3 at 700 W): 16-byte cp.async copies, issued by the
+// consumers, stalled them (the copies an SM may have in flight were the
+// limit, and the compute waited behind each issue); 1-D bulk copies of the
+// row pieces were slower still; boxes of 2 KB streamed slower than 4 KB
+// ones. With the stream behind a producer, what bounds the route is
+// the ldmatrix traffic of the products (each B fragment read by two warps,
+// each A fragment by four); wgmma (M = 64, half of it padding, A from
+// registers, B read in place from the stage as an MN-major 64-byte-swizzled
+// operand) was right but no faster, its epilogues on half the warps.
+// Rounding sites: those of the wgmma kernel (LayerNorm with fp32 statistics,
+// attention and the epilogues as there); only the order of the fp32 sums
+// inside a GEMM and a LayerNorm differs.
+// Head widths 16, 32, 48 and 64 on every route (attend_query loads a head
 // as whole 16-byte vectors: 48 is 6 of bf16, 12 of float32).
 //
 // Numerics follow the Pallas kernel: LayerNorm with fp32 stats (clamped
@@ -150,7 +205,7 @@
 
 namespace cdm {
 
-constexpr int NTHREADS = 256;  // the rows route: 8 warps
+constexpr int NTHREADS = 256;  // the rows and wide routes: 8 warps
 constexpr int KT = 32;         // weight rows per staged k-tile
 constexpr int NC = 128;        // output columns per GEMM chunk
 constexpr int PAD = 8;         // row padding (elements): conflict-free rows
@@ -160,7 +215,6 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return x * (0.5f * (1.0f + tanhf(k * (x + 0.044715f * (x * x * x)))));
 }
 
-// ============================================== the rows route (scalar)
 // tanh-GELU for a bf16 result. 0.5 (1 + tanh(u)) is sigmoid(2u), so
 // gelu(x) = x / (1 + exp(-2u)): one ex2.approx and one rcp.approx (~2
 // float32 ulps, 2^-15 of a bf16 ulp, gone in the rounding that follows)
@@ -170,27 +224,7 @@ __device__ __forceinline__ float gelu_tanh16(float x) {
   return __fdividef(x, 1.0f + __expf(-k2 * (x + 0.044715f * (x * x * x))));
 }
 
-// the GELU each type evaluates between its two roundings (see the header)
-template <typename T> __device__ __forceinline__ float gelu_of(float x);
-template <> __device__ __forceinline__ float gelu_of<float>(float x) {
-  return gelu_tanh(x);
-}
-template <> __device__ __forceinline__ float gelu_of<bf16>(float x) {
-  return gelu_tanh16(x);
-}
-
-// four consecutive elements as floats (8 bytes of bf16, 16 of float32)
-__device__ __forceinline__ float4 load4f(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4f(const bf16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
+// ============================================== the rows route (float32)
 
 // Ws[KT][NC + PAD] = W[k0 : k0 + KT, n0 : n0 + NC], zero beyond column N
 template <typename T>
@@ -217,7 +251,7 @@ template <typename T> struct EpiStore {  // dst = T(acc + bias)
 template <typename T> struct EpiGelu {  // dst = T(gelu(T(acc + bias)))
   T* dst; int ld; const T* bias;
   __device__ void operator()(int r, int c, float v) const {
-    dst[r * ld + c] = from_f<T>(gelu_of<T>(round_to<T>(v + to_f(bias[c]))));
+    dst[r * ld + c] = from_f<T>(gelu_tanh(round_to<T>(v + to_f(bias[c]))));
   }
 };
 
@@ -249,7 +283,8 @@ __device__ void tile_gemm(const T* A, int lda, const T* W, int K, int N,
       __syncthreads();
 #pragma unroll 4
       for (int kk = 0; kk < KT; ++kk) {
-        const float4 b = load4f(Ws + kk * (NC + PAD) + lane * 4);
+        const float4 b =
+            *reinterpret_cast<const float4*>(Ws + kk * (NC + PAD) + lane * 4);
 #pragma unroll
         for (int r = 0; r < RM; ++r) {
           const float a = to_f(A[(warp * RM + r) * lda + k0 + kk]);
@@ -1072,6 +1107,466 @@ fused_dit_block_bf16_kernel(const bf16* tok, const bf16* wqkv,
   }
 }
 
+// ================================================ the wide route (bf16)
+constexpr int MTW = 32;          // token rows of a wide-route tile
+constexpr int NCH_MAX = 384;     // widest N chunk of a wide-route GEMM
+constexpr int NT_MAX = NCH_MAX / 2 / 32;  // n8 tiles a consumer warp holds
+constexpr int THREADS_W = NTHREADS + WG;  // 2 consumer warpgroups, 1 producer
+constexpr int BOXC = 32;         // a weight box: 32 columns (64 bytes) ..
+constexpr int BOXR = 64;         // .. x 64 k-rows
+constexpr int BOX_BYTES = BOXC * BOXR * 2;
+constexpr size_t SMEM_LIMIT = 232448;     // bytes a block may use
+
+// Shared memory of a wide-route tile, in bytes: X and LN(x) [32][D + PAD],
+// the wide buffer [32][4D + PAD], the ring's (up to) 2 x 4 mbarriers and
+// up to 1024 to align the ring
+__host__ __device__ constexpr size_t smem_bytes_wide_tile(int d) {
+  return 2 * ((size_t)2 * MTW * (d + PAD) + (size_t)MTW * (4 * d + PAD)) +
+         8 * 8 + 1024;
+}
+
+// One stage of the weight ring: 32 k-rows of nch columns, as a tile of 64
+// k-rows of a chunk of nch / 2 columns (or more rows of a narrower chunk)
+__host__ __device__ constexpr size_t wide_stage_bytes(int nch) {
+  return 2 * (size_t)KT * nch;
+}
+
+// The ring beside the tile: the widest N chunk (a multiple of 64 up to 384)
+// whose three stages fit, else two stages of 64 columns (D = 576); {0, 0}
+// where nothing fits
+struct WideRing {
+  int nch, stages;
+};
+__host__ __device__ constexpr WideRing wide_ring(int d) {
+  for (int nch = NCH_MAX; nch >= 64; nch -= 64)
+    if (smem_bytes_wide_tile(d) + 3 * wide_stage_bytes(nch) <= SMEM_LIMIT)
+      return {nch, 3};
+  if (smem_bytes_wide_tile(d) + 2 * wide_stage_bytes(64) <= SMEM_LIMIT)
+    return {64, 2};
+  return {0, 0};
+}
+
+__host__ __device__ constexpr size_t smem_bytes_wide(int d) {
+  return smem_bytes_wide_tile(d) +
+         (size_t)wide_ring(d).stages * wide_stage_bytes(wide_ring(d).nch);
+}
+static_assert(wide_ring(384).nch == 384 && wide_ring(576).stages == 2,
+              "the frontier's width takes whole chunks; D = 576 fits");
+
+// Four 8 x 8 matrices of 16-bit elements from shared memory (the rows
+// whose addresses lanes 0-7, 8-15, 16-23, 24-31 give), as mma.sync's A
+// fragment of a 16 x 16 tile
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Four 8 x 8 matrices transposed: of a 32 (k) x 8 (n) tile stored
+// k-row-major, rows from lanes 0-31, the B fragments of its two k16 steps
+// ({r0, r1} and {r2, r3})
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16) @ b (16 x 8, bf16): b0, b1 the B
+// fragment. c[0..1]: row lane / 4, columns 2 (lane % 4) + {0, 1}; c[2..3]:
+// row lane / 4 + 8.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One GEMM of a wide-route block: n of its weight's columns (bias b), K =
+// k, in segments of seg columns, segment s at global column s * D + rank *
+// seg (qkv: three of D / n; the others one, seg = n). The ring holds each
+// segment padded to whole boxes (pseg columns; at the frontier's widths
+// there is no padding), and a chunk is up to nch / 2 of those padded
+// columns.
+struct WideGemm {
+  const bf16* b;
+  int k, n, seg;
+  __device__ __forceinline__ int pseg() const {
+    return (seg + BOXC - 1) / BOXC * BOXC;
+  }
+  __device__ __forceinline__ int padded() const { return n / seg * pseg(); }
+  // the global column of padded column pc
+  __device__ __forceinline__ int col(int pc, int d, int rank) const {
+    return pc / pseg() * d + rank * seg + pc % pseg();
+  }
+  // k-rows of a tile of a chunk pw wide in a ring of nch-column stages: a
+  // stage's worth (64 at the widest chunk, more at a narrow one); its last
+  // tile may be cut short at k, a multiple of 32
+  __device__ __forceinline__ int depth(int pw, int nch) const {
+    return BOXR * max(1, nch / 2 / pw);
+  }
+};
+
+// The wide route's kernel arguments, read in place from the parameter bank
+// (__grid_constant__): the four weights' tensor maps (boxes of 32 columns x
+// 64 k-rows, 64-byte swizzled) and their GEMMs, qkv, proj, W1, W2.
+struct WideParams {
+  CUtensorMap map[4];
+  WideGemm gemm[4];
+  const bf16* tok;
+  bf16* out;
+  int n_img, n_tok, d, imgs_per_tile, n_cta, nch, stages;
+  float scale;
+};
+
+// The weight ring of a wide-route block. Stage s holds tile t = s, s +
+// stages, ..: full(t) completes a phase when the tile has landed, empty(t)
+// when the 8 consumer warps have done with it. The tiles are those of the
+// four GEMMs in turn, chunk by chunk (up to nch / 2 padded columns), 64 or
+// more k-rows a tile; a tile is stored as panels of its 32-column boxes (depth
+// rows of 64 bytes each, 64-byte swizzled: the 16-byte chunk c of row r at
+// c ^ (r / 2 % 4)).
+struct WideStages {
+  const WideParams& p;
+  uint32_t ring, bars;
+  __device__ __forceinline__ uint32_t stage(int t) const {
+    return ring + (uint32_t)((t % p.stages) * wide_stage_bytes(p.nch));
+  }
+  __device__ __forceinline__ uint32_t full(int t) const {
+    return bars + 8 * (t % p.stages);
+  }
+  __device__ __forceinline__ uint32_t empty(int t) const {
+    return bars + 8 * (4 + t % p.stages);
+  }
+  __device__ __forceinline__ WideGemm at(int i) const {
+    return i == 0 ? p.gemm[0] : i == 1 ? p.gemm[1]
+         : i == 2 ? p.gemm[2] : p.gemm[3];
+  }
+};
+
+// The producer warpgroup. Its first warp walks every tile of the four GEMMs
+// and, as soon as the consumers have released the tile's stage, lane 0
+// tells its full barrier the bytes and lane i issues the TMA copy of box i;
+// it never waits for data. Every thread of it arrives at the cluster's
+// barriers (see the kernel): at barrier k + 1 before the first tile of GEMM
+// k + 1, after waiting for barrier k; every tile the consumers need before
+// they arrive at barrier k + 1 is then issued or in flight, so neither side
+// waits for the other in a circle.
+__device__ void produce_wide(const WideStages& rg, int rank) {
+  const WideParams& p = rg.p;
+  const int lane = threadIdx.x % 32;
+  const bool streams = threadIdx.x / 32 == NTHREADS / 32;  // its first warp
+  int t = 0;
+  for (int g = 0; g < 4; ++g) {
+    if (g > 0) cluster_wait();  // barrier g - 1
+    cluster_arrive();           // barrier g
+    if (!streams) continue;
+    const WideGemm G = rg.at(g);
+    const uint64_t map = reinterpret_cast<uint64_t>(
+        g == 0 ? &p.map[0] : g == 1 ? &p.map[1]
+      : g == 2 ? &p.map[2] : &p.map[3]);
+    for (int c0 = 0; c0 < G.padded(); c0 += p.nch / 2) {
+      const int pw = min(p.nch / 2, G.padded() - c0);
+      const int depth = G.depth(pw, p.nch);
+      for (int k0 = 0; k0 < G.k; k0 += depth, ++t) {
+        // boxes past k land as zeros (and are never read)
+        const int per = (min(depth, G.k - k0) + BOXR - 1) / BOXR;
+        const int boxes = pw / BOXC * per;
+        mbar_wait(rg.empty(t), (uint32_t)(t / p.stages & 1) ^ 1u);
+        if (lane == 0) mbar_expect_tx(rg.full(t), boxes * BOX_BYTES);
+        __syncwarp();
+        if (lane < boxes)
+          tma_load_2d(rg.stage(t) + lane / per * depth * 64 +
+                          lane % per * BOX_BYTES,
+                      map, G.col(c0 + BOXC * (lane / per), p.d, rank),
+                      k0 + BOXR * (lane % per), rg.full(t));
+      }
+    }
+  }
+  cluster_wait();  // barrier 3
+}
+
+// Y[r] = bf16(LN(X[r])) for the tile's 32 rows, no affine: 8 threads a
+// row, each summing every eighth 16-byte vector of it; fp32 stats, clamped
+// one-pass variance, eps 1e-6 (row_stats' formula, another order of sums)
+__device__ __forceinline__ void layer_norm_wide(const bf16* X, int ldx,
+                                                bf16* Y, int d) {
+  const int r = threadIdx.x / 8, q = threadIdx.x % 8;
+  const bf16* x = X + r * ldx;
+  float s = 0.f, ss = 0.f;
+#pragma unroll 3
+  for (int c = 8 * q; c < d; c += 64) {
+    float v[8];
+    load_f<bf16, 8>(x + c, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s += v[i];
+      ss += v[i] * v[i];
+    }
+  }
+#pragma unroll
+  for (int o = 4; o > 0; o /= 2) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  }
+  const float mu = s / d;
+  const float inv = 1.f / sqrtf(fmaxf(0.f, ss / d - mu * mu) + 1e-6f);
+#pragma unroll 3
+  for (int c = 8 * q; c < d; c += 64) {
+    float v[8];
+    load_f<bf16, 8>(x + c, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = (v[i] - mu) * inv;
+    store_f<bf16, 8>(Y + r * ldx + c, v);
+  }
+  consumer_sync();
+}
+
+// Epilogues of the wide route on columns (c, c + 1) of row r (c even: the
+// block's own column; gc: its column in the output of D or 4D); v0, v1
+// are the fp32 sums with the bias added.
+struct EpiQkvW {  // local qkv: Q[r][c] = bf16(acc + bias)
+  bf16* q; int ld;
+  __device__ __forceinline__ void operator()(int r, int c, int, float v0,
+                                             float v1) const {
+    *reinterpret_cast<__nv_bfloat162*>(q + r * ld + c) =
+        __floats2bfloat162_rn(v0, v1);
+  }
+};
+
+struct EpiGeluW {  // hidden: H[r][gc] = bf16(gelu(bf16(acc + bias)))
+  bf16* h; int ld;
+  __device__ __forceinline__ void operator()(int r, int, int gc, float v0,
+                                             float v1) const {
+    *reinterpret_cast<__nv_bfloat162*>(h + r * ld + gc) =
+        __floats2bfloat162_rn(gelu_tanh16(round_to<bf16>(v0)),
+                              gelu_tanh16(round_to<bf16>(v1)));
+  }
+};
+
+struct EpiResidualW {  // X[r][gc] = bf16(X + bf16(acc + bias))
+  bf16* x; int ld;
+  __device__ __forceinline__ void operator()(int r, int, int gc, float v0,
+                                             float v1) const {
+    EpiResidual16{x, ld}(r, gc, v0, v1);
+  }
+};
+
+// out = A @ W through the epilogue for the tile's 32 rows, on the tensor
+// cores, by the 8 consumer warps: W is GEMM gi, whose tiles are the ring's
+// from t on. A: shared [32][lda], K = G.k columns. Warp w holds m16 tile
+// w % 2 of the n8 tiles 4 j + w / 2 of each chunk (pw / 32 of them, the
+// same count for every warp; those in a segment's padding are computed and
+// dropped). The caller synchronises the consumers afterwards.
+template <class Epi>
+__device__ __forceinline__ void wide_gemm(const bf16* A, int lda, int gi,
+                                          const WideStages& rg, int& t,
+                                          int rank, const Epi& epi) {
+  const WideGemm G = rg.at(gi);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m = warp % 2, grp = warp / 2;
+  const int pseg = G.pseg(), padded = G.padded(), nch = rg.p.nch;
+  // this lane's row address for ldmatrix: row lane % 16 of the m16 tile,
+  // columns + 8 for lanes 16-31; and of the B tile's k-row lane, whose
+  // swizzle term is the same for every 32 k-rows
+  const uint32_t a_lane =
+      smem_u32(A + (16 * m + lane % 16) * lda + (lane / 16) * 8);
+  const int xo = lane / 2 % 4;
+  for (int c0 = 0; c0 < padded; c0 += nch / 2) {
+    const int pw = min(nch / 2, padded - c0), depth = G.depth(pw, nch);
+    const int nt = pw / 32;  // n8 tiles a warp
+    // for each of this warp's n8 tiles: its offset in the stage (its box's
+    // panel, its 16-byte chunk swizzled); this thread's column pair there
+    // (its own and global) and its bias, if it holds columns
+    uint32_t boff[NT_MAX], bias[NT_MAX];
+    int jc[NT_MAX], gc[NT_MAX];
+    bool ok[NT_MAX];
+#pragma unroll
+    for (int j = 0; j < NT_MAX; ++j) {
+      const int q = 8 * (4 * j + grp), pc = c0 + q;
+      const int s = pc / pseg, e = pc % pseg + 2 * (lane % 4);
+      ok[j] = j < nt && pc % pseg < G.seg;
+      jc[j] = s * G.seg + e;
+      gc[j] = s * rg.p.d + rank * G.seg + e;
+      bias[j] = ok[j] ? __ldg(reinterpret_cast<const uint32_t*>(G.b + gc[j]))
+                      : 0u;
+      boff[j] = (uint32_t)((q / BOXC) * depth * 64 + lane * 64 +
+                           ((q % BOXC / 8) ^ xo) * 16);
+    }
+    float acc[NT_MAX][4];
+#pragma unroll
+    for (int j = 0; j < NT_MAX; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int k0 = 0; k0 < G.k; k0 += depth, ++t) {
+      const int rows = min(depth, G.k - k0);
+      mbar_wait(rg.full(t), (uint32_t)(t / rg.p.stages) & 1u);
+      const uint32_t st = rg.stage(t);
+      // the fragments of 32 k-rows (two k16 steps): those of the next 32
+      // are asked for before the products of these
+      uint32_t a[2][4], b[NT_MAX][4];
+      const auto load = [&](int kk, uint32_t (&a_)[2][4],
+                            uint32_t (&b_)[NT_MAX][4]) {
+#pragma unroll
+        for (int j = 0; j < NT_MAX; ++j)
+          if (j < nt) ldsm_x4_trans(b_[j], st + boff[j] + kk * 64);
+        ldsm_x4(a_[0], a_lane + 2 * (k0 + kk));
+        ldsm_x4(a_[1], a_lane + 2 * (k0 + kk + 16));
+      };
+      load(0, a, b);
+      for (int kk = 0; kk < rows; kk += 32) {
+        uint32_t an[2][4], bn[NT_MAX][4];
+        if (kk + 32 < rows) load(kk + 32, an, bn);
+#pragma unroll
+        for (int j = 0; j < NT_MAX; ++j)
+          if (j < nt) {  // the same for every warp
+            mma_bf16(acc[j], a[0], b[j][0], b[j][1]);
+            mma_bf16(acc[j], a[1], b[j][2], b[j][3]);
+          }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[0][i] = an[0][i];
+          a[1][i] = an[1][i];
+#pragma unroll
+          for (int j = 0; j < NT_MAX; ++j) b[j][i] = bn[j][i];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(rg.empty(t));
+    }
+    const int r = 16 * m + lane / 4;
+#pragma unroll
+    for (int j = 0; j < NT_MAX; ++j)
+      if (ok[j]) {
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&bias[j]));
+        epi(r, jc[j], gc[j], acc[j][0] + b.x, acc[j][1] + b.y);
+        epi(r + 8, jc[j], gc[j], acc[j][2] + b.x, acc[j][3] + b.y);
+      }
+  }
+}
+
+// Columns c0 .. c0 + cols - 1 of the first `rows` rows of a row-major
+// shared buffer, copied into the same place in every other block of the
+// cluster (16-byte stores through distributed shared memory)
+__device__ __forceinline__ void to_peers(bf16* buf, int ld, int rows, int c0,
+                                         int cols, int n_cta, int rank) {
+  bf16* peer[MAX_CLUSTER - 1];
+#pragma unroll
+  for (int q = 1; q < MAX_CLUSTER; ++q)
+    if (q < n_cta)
+      peer[q - 1] = static_cast<bf16*>(cluster_map(buf, (rank + q) % n_cta));
+  const int vpr = cols / 8;
+  for (int v = threadIdx.x; v < rows * vpr; v += NTHREADS) {
+    const int off = v / vpr * ld + c0 + v % vpr * 8;
+    const uint4 val = *reinterpret_cast<const uint4*>(buf + off);
+#pragma unroll
+    for (int q = 1; q < MAX_CLUSTER; ++q)
+      if (q < n_cta) *reinterpret_cast<uint4*>(peer[q - 1] + off) = val;
+  }
+}
+
+// One tile of 32 rows (imgs_per_tile whole images) per cluster of n_cta
+// blocks; the block of rank r computes the r-th n_cta-th of every GEMM's
+// output columns (see the header). Threads 0-255 consume (and do every
+// phase but the weight stream), warpgroup 2 produces.
+template <int HD>
+__global__ void __launch_bounds__(THREADS_W, 1)
+fused_dit_block_wide_kernel(const __grid_constant__ WideParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int d = p.d, n_tok = p.n_tok, n_cta = p.n_cta;
+  const int ldx = d + PAD, ldw = 4 * d + PAD;
+  bf16* X = reinterpret_cast<bf16*>(smem_raw);
+  bf16* A = X + MTW * ldx;
+  bf16* Q = A + MTW * ldx;  // o [0, D), then the hidden [0, 4D)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Q + MTW * ldw);
+  // the ring's boxes start on 1024 bytes: their swizzle is a function of
+  // the address
+  const WideStages rg{p, (smem_u32(bars + 8) + 1023u) & ~1023u,
+                     smem_u32(bars)};
+  const int rank = cluster_rank(), dn = d / n_cta;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(rg.full(s), 1);      // the producer's expect_tx
+      mbar_init(rg.empty(s), NTHREADS / 32);  // lane 0 of each consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the producer needs few registers; the consumers hold the accumulators
+  // and two steps of fragments: 128 x 40 + 256 x 232 of the SM's 65536
+  if (threadIdx.x >= NTHREADS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    produce_wide(rg, rank);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  cluster_arrive();  // barrier 0: this block has started
+
+  const int img0 = blockIdx.x / n_cta * p.imgs_per_tile;
+  const int imgs = min(p.imgs_per_tile, p.n_img - img0);
+  const int rows = imgs * n_tok;
+  const size_t g0 = (size_t)img0 * n_tok * d;
+  const int vpr = d / 8;
+  int t = 0;  // the ring's tiles taken
+  // residual tile in; rows past the tile's images are zero
+  for (int v = threadIdx.x; v < MTW * vpr; v += NTHREADS) {
+    const int r = v / vpr, c = (v % vpr) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows)
+      val = *reinterpret_cast<const uint4*>(p.tok + g0 + (size_t)r * d + c);
+    *reinterpret_cast<uint4*>(X + r * ldx + c) = val;
+  }
+  consumer_sync();
+
+  // attention half: this block's heads' qkv into Q[:, D : D + 3D / n],
+  // their attention output over Q[:, rank D / n ..]
+  layer_norm_wide(X, ldx, A, d);
+  wide_gemm(A, ldx, 0, rg, t, rank, EpiQkvW{Q + d, ldw});
+  consumer_sync();
+  const int heads = dn / HD;
+  for (int i = threadIdx.x; i < imgs * heads * n_tok; i += NTHREADS) {
+    const int im = i / (heads * n_tok), rem = i % (heads * n_tok);
+    attend_query<bf16, HD>(RowMajor<bf16>{Q + d + im * n_tok * ldw, ldw},
+                           RowMajor<bf16>{Q + rank * dn + im * n_tok * ldw,
+                                          ldw},
+                           rem % n_tok, rem / n_tok, n_tok, dn, p.scale);
+  }
+  consumer_sync();
+  cluster_wait();  // barrier 0: every peer has started
+  to_peers(Q, ldw, rows, rank * dn, dn, n_cta, rank);
+  cluster_arrive();  // barrier 1: every block's o is in place
+  cluster_wait();
+  wide_gemm(Q, ldw, 1, rg, t, rank, EpiResidualW{X, ldx});
+  consumer_sync();
+  to_peers(X, ldx, rows, rank * dn, dn, n_cta, rank);
+  cluster_arrive();  // barrier 2: every block's columns of x are in place
+  cluster_wait();
+
+  // MLP half: GELU hidden into Q[:, 0:4D]
+  layer_norm_wide(X, ldx, A, d);
+  wide_gemm(A, ldx, 2, rg, t, rank, EpiGeluW{Q, ldw});
+  consumer_sync();
+  to_peers(Q, ldw, rows, rank * 4 * dn, 4 * dn, n_cta, rank);
+  cluster_arrive();  // barrier 3: the hidden is whole
+  cluster_wait();
+  wide_gemm(Q, ldw, 3, rg, t, rank, EpiResidualW{X, ldx});
+  consumer_sync();
+
+  const int vpb = dn / 8;  // this block's output columns, in vectors
+  for (int v = threadIdx.x; v < rows * vpb; v += NTHREADS) {
+    const int r = v / vpb, c = rank * dn + (v % vpb) * 8;
+    *reinterpret_cast<uint4*>(p.out + g0 + (size_t)r * d + c) =
+        *reinterpret_cast<const uint4*>(X + r * ldx + c);
+  }
+}
+
 // ------------------------------------------------------------ launches
 struct Args {
   const void* p[9];
@@ -1117,19 +1612,20 @@ static int launch_rows(int hd, const Args& a) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The cluster route's launch configuration: n_cta blocks an image. attr
-// is filled and pointed to.
-static cudaLaunchConfig_t cluster_config(const Args& a, int n_cta,
+// A launch configuration of clusters of n_cta blocks. attr is filled and
+// pointed to.
+static cudaLaunchConfig_t cluster_config(int grid, int threads, size_t smem,
+                                         int n_cta, cudaStream_t stream,
                                          cudaLaunchAttribute& attr) {
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = n_cta;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.n_img * n_cta);
-  cfg.blockDim = dim3(THREADS16);
-  cfg.dynamicSmemBytes = smem_bytes_bf16(a.d, true);
-  cfg.stream = a.stream;
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return cfg;
@@ -1149,7 +1645,9 @@ static int launch_bf16_hd(const Args& a, int n_cta, int* max_clusters) {
       (int)smem_bytes_bf16(a.d, true));
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(a, n_cta, attr);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(a.n_img * n_cta, THREADS16, smem_bytes_bf16(a.d, true),
+                     n_cta, a.stream, attr);
   if (max_clusters) return (int)cudaOccupancyMaxActiveClusters(
       max_clusters, kern, &cfg);
   e = cudaLaunchKernelEx(
@@ -1175,19 +1673,77 @@ static int launch_bf16(int hd, const Args& a, int n_cta,
   return (int)cudaErrorInvalidValue;
 }
 
+// The wide route: a tile of 32 rows (whole images) to a cluster of n_cta
+// blocks. max_clusters: as for launch_bf16_hd. The four tensor maps are
+// encoded on the host at every launch (the folded weights are new tensors
+// at every call).
+template <int HD>
+static int launch_wide_hd(const Args& a, int n_cta, int* max_clusters) {
+  const auto kern = fused_dit_block_wide_kernel<HD>;
+  const size_t smem = smem_bytes_wide(a.d);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const WideRing rg = wide_ring(a.d);
+  const int d = a.d, dn = a.d / n_cta;
+  WideParams p{{},
+               {{static_cast<const bf16*>(a.p[2]), d, 3 * dn, dn},
+                {static_cast<const bf16*>(a.p[4]), d, dn, dn},
+                {static_cast<const bf16*>(a.p[6]), d, 4 * dn, 4 * dn},
+                {static_cast<const bf16*>(a.p[8]), 4 * d, dn, dn}},
+               static_cast<const bf16*>(a.p[0]), static_cast<bf16*>(a.out),
+               a.n_img, a.n_tok, d, MTW / a.n_tok, n_cta, rg.nch, rg.stages,
+               a.scale};
+  const int tiles = (a.n_img + p.imgs_per_tile - 1) / p.imgs_per_tile;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(tiles * n_cta, THREADS_W, smem, n_cta, a.stream, attr);
+  if (max_clusters) return (int)cudaOccupancyMaxActiveClusters(
+      max_clusters, kern, &cfg);
+  // weight i (qkv, proj, W1, W2) is (K, N) row-major: K = 4D for W2
+  const int wn[4] = {3 * d, d, 4 * d, d};
+  for (int i = 0; i < 4; ++i) {
+    const long long dims[2] = {wn[i], i == 3 ? 4 * d : d};
+    const long long strides[1] = {wn[i]};
+    const int box[2] = {BOXC, BOXR};
+    if (!encode_bf16_map(&p.map[i], a.p[1 + 2 * i], 2, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_64B))
+      return (int)cudaErrorInvalidValue;
+  }
+  e = cudaLaunchKernelEx(&cfg, kern, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// n_cta: blocks a tile, 1 to 4, dividing the heads
+static int launch_wide(int hd, const Args& a, int n_cta,
+                       int* max_clusters = nullptr) {
+  if (a.d <= MAX_D || !wide_ring(a.d).stages || a.n_tok > MTW ||
+      n_cta < 1 || n_cta > MAX_CLUSTER || (a.d / hd) % n_cta)
+    return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return launch_wide_hd<16>(a, n_cta, max_clusters);
+    case 32: return launch_wide_hd<32>(a, n_cta, max_clusters);
+    case 48: return launch_wide_hd<48>(a, n_cta, max_clusters);
+    case 64: return launch_wide_hd<64>(a, n_cta, max_clusters);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace cdm
 
 // dtype: 0 = float32, 1 = bfloat16. mt: token rows per block and n_cta:
-// blocks per image, which together name the route: mt 64 in bfloat16 is
-// the wgmma kernel (D <= 256), with n_cta 1 for whole images of up to 64
-// tokens a block, or n_cta = ceil(n_tok / 64), 2 to 4, for the cluster
-// route; 16, 32 or 64 in float32 and 32 in bfloat16 the rows route (fp32
-// FMAs over staged k-tiles; the bfloat16 stream wider than 256), n_cta 1.
-// The caller chooses them so that the block's shared memory fits
-// (ops/kernels.py mirrors smem_bytes_rows and smem_bytes_bf16); a size that
-// does not fit fails in cudaFuncSetAttribute and is returned. hd: 16, 32,
-// 48 or 64. Returns cudaGetLastError() after the launch (0 on success),
-// the launch's own error, or cudaErrorInvalidValue for an unsupported
+// blocks per image or tile, which together name the route: mt 64 in
+// bfloat16 is the wgmma kernel (D <= 256), with n_cta 1 for whole images of
+// up to 64 tokens a block, or n_cta = ceil(n_tok / 64), 2 to 4, for the
+// cluster route; 32 in bfloat16 the wide route (D > 256, whole images of up
+// to 32 tokens a tile, n_cta 1 to 4 blocks a tile, dividing the heads); 16,
+// 32 or 64 in float32 the rows route, n_cta 1. The caller chooses them so
+// that the block's shared memory fits (ops/kernels.py mirrors
+// smem_bytes_rows, smem_bytes_bf16 and smem_bytes_wide); a size that does
+// not fit fails in cudaFuncSetAttribute and is returned. hd: 16, 32, 48 or
+// 64. Returns cudaGetLastError() after the launch (0 on success), the
+// launch's own error, or cudaErrorInvalidValue for an unsupported
 // combination.
 extern "C" int fused_dit_block_launch(
     int dtype, const void* tok, const void* wqkv, const void* bqkv,
@@ -1198,6 +1754,7 @@ extern "C" int fused_dit_block_launch(
                     n_tok, d, scale, static_cast<cudaStream_t>(stream)};
   if (n_tok < 1 || d % cdm::KT != 0 || d % hd != 0)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && mt == cdm::MTW) return cdm::launch_wide(hd, a, n_cta);
   if (n_cta != 1) {  // the cluster route: exactly the blocks T needs
     if (dtype != 1 || mt != cdm::MT16 || n_cta > cdm::MAX_CLUSTER ||
         n_cta != (n_tok + mt - 1) / mt || n_tok <= mt)
@@ -1206,21 +1763,26 @@ extern "C" int fused_dit_block_launch(
   }
   if (n_tok > mt) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && mt == 64) return cdm::launch_bf16(hd, a, 1);
-  if (dtype == 1 && mt == 32) return cdm::launch_rows<cdm::bf16, 32>(hd, a);
   if (dtype == 0 && mt == 64) return cdm::launch_rows<float, 64>(hd, a);
   if (dtype == 0 && mt == 32) return cdm::launch_rows<float, 32>(hd, a);
   if (dtype == 0 && mt == 16) return cdm::launch_rows<float, 16>(hd, a);
   return (int)cudaErrorInvalidValue;
 }
 
-// The cluster route's occupancy: how many clusters of n_cta blocks (each
-// with the bf16 kernel's shared memory at width d) the card holds at once,
-// from cudaOccupancyMaxActiveClusters. Returns 0 and writes the count to
+// The occupancy of the routes launched as clusters: how many clusters of
+// n_cta blocks (each with the route's shared memory at width d: the
+// cluster route's up to D = 256, n_cta 2 to 4; the wide route's past it,
+// n_cta 1 to 4) the card holds at once, from
+// cudaOccupancyMaxActiveClusters. Returns 0 and writes the count to
 // *clusters, or the CUDA error.
 extern "C" int fused_dit_block_max_clusters(int d, int hd, int n_cta,
                                             int* clusters) {
+  if (d % cdm::KT != 0 || d % hd != 0) return (int)cudaErrorInvalidValue;
+  if (d > cdm::MAX_D) {
+    const cdm::Args a{{}, nullptr, 1, 1, d, 1.f, nullptr};
+    return cdm::launch_wide(hd, a, n_cta, clusters);
+  }
   const cdm::Args a{{}, nullptr, 1, n_cta * cdm::MT16, d, 1.f, nullptr};
-  if (n_cta < 2 || n_cta > cdm::MAX_CLUSTER || d % cdm::KT != 0)
-    return (int)cudaErrorInvalidValue;
+  if (n_cta < 2 || n_cta > cdm::MAX_CLUSTER) return (int)cudaErrorInvalidValue;
   return cdm::launch_bf16(hd, a, n_cta, clusters);
 }

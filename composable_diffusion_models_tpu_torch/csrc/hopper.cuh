@@ -131,13 +131,14 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 // The tensor map of a bf16 tensor of `rank` dimensions, inner first: dims
 // elements, strides in elements of every dimension but the inner one
 // (multiples of 8: 16 bytes), read in boxes of box elements, 128-byte
-// swizzled (box[0] = 64: one 128-byte row), zeros past the edges. The
-// driver's encoder is found through the runtime, so the library links
-// nothing but the CUDA runtime. Returns false where it cannot be had or
-// refuses the arguments.
-static bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                            const long long* dims, const long long* strides,
-                            const int* box) {
+// swizzled (box[0] = 64: one 128-byte row) unless told another swizzle
+// (64-byte: box[0] = 32), zeros past the edges. The driver's encoder is
+// found through the runtime, so the library links nothing but the CUDA
+// runtime. Returns false where it cannot be had or refuses the arguments.
+static bool encode_bf16_map(
+    CUtensorMap* map, const void* base, int rank, const long long* dims,
+    const long long* strides, const int* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static const EncodeTiled fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -158,7 +159,7 @@ static bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
   }
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(base), d, s, b, one,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -53,7 +53,17 @@ _PANEL_BYTES, _STAGES = 64 * 128, 8
 _ATTN_HEAD_DIMS = (8, 16, 32, 48, 64)
 _BLOCK_HEAD_DIMS = (16, 32, 48, 64)
 _WGMMA_MAX_D = 256  # widest bfloat16 stream of the 64-row wgmma route
-_MAX_CLUSTER = 4    # blocks of one image on the cluster route (MAX_CLUSTER)
+_MAX_CLUSTER = 4    # blocks of an image or a tile (MAX_CLUSTER)
+_WIDE_ROWS = 32     # token rows of a wide-route tile (MTW)
+_WIDE_CHUNKS = (384, 320, 256, 192, 128, 64)  # its weight ring's stages
+# Clusters of n wide-route blocks an H100 holds at once
+# (cudaOccupancyMaxActiveClusters at 187-232 KB of shared memory a block, one
+# block an SM; chip_smoke.py prints them), and the cost of a block at n
+# blocks a tile, ~ (n + _WIDE_FIXED) / n: its weight stream shrinks with n,
+# its LayerNorms, attention and exchanges do not (fitted to chip_smoke.py's
+# times of the route at (128, 4, 384) with 4, 2 and 1 blocks a tile)
+_WIDE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30}
+_WIDE_FIXED = 6
 # groupnorm_silu's launch geometry (csrc/groupnorm_silu.cu)
 _GN_THREADS = 256
 _GN_MAX_SPLITS = 32
@@ -200,6 +210,28 @@ short_seq_attention.launches = 0
 
 
 # ---------------------------------------------------------- fused_dit_block
+def _wide_tile_bytes(d: int) -> int:
+    return (2 * (2 * _WIDE_ROWS * (d + _PAD) + _WIDE_ROWS * (4 * d + _PAD))
+            + 8 * 8 + 1024)
+
+
+def _wide_stage_bytes(nch: int) -> int:
+    return 2 * _KT * nch
+
+
+def block_ring(d: int):
+    """The wide route's weight ring at width ``d`` (smem_bytes_wide): (the
+    N-chunk columns a stage holds, stages), the widest chunk of 384, 320,
+    .., 64 columns whose three stages of 32 x chunk bf16 fit beside the
+    tile, else two stages of 64 columns; None where nothing fits."""
+    for nch in _WIDE_CHUNKS:
+        if _wide_tile_bytes(d) + 3 * _wide_stage_bytes(nch) <= _SMEM_LIMIT:
+            return nch, 3
+    if _wide_tile_bytes(d) + 2 * _wide_stage_bytes(64) <= _SMEM_LIMIT:
+        return 64, 2
+    return None
+
+
 def block_smem_bytes(dtype: torch.dtype, rows: int, d: int,
                      n_cta: int = 1) -> int:
     """Shared memory of one fused_dit_block block holding ``rows`` token
@@ -209,11 +241,20 @@ def block_smem_bytes(dtype: torch.dtype, rows: int, d: int,
     cluster route, n_cta > 1, at least the 3D columns of qkv and four
     staging panels of attention beyond them), a ring of 8 weight stages of
     32 x 128, the residual [64][D + 8], the rows' LayerNorm statistics and
-    24 mbarriers. The rows route (float32 at 64, 32 or 16 rows; bfloat16
-    wider than 256 at 32), in the stream type: the residual and LayerNorm
-    tiles [rows][D + 8], the 4D-wide buffer [rows][4D + 8] and one weight
-    k-tile [32][128 + 8]."""
-    if dtype == torch.bfloat16 and d <= _WGMMA_MAX_D:
+    24 mbarriers. The wide route (bfloat16 wider than 256, 32 rows, any
+    blocks a tile): the residual and LayerNorm tiles [32][D + 8], the
+    4D-wide buffer [32][4D + 8], 8 mbarriers, up to 1024 bytes to align
+    the ring and the :func:`block_ring` (two stages of 64 columns where
+    none fits), bf16. The rows route (float32 at 64, 32 or 16 rows), in
+    float32: the residual and LayerNorm tiles [rows][D + 8], the 4D-wide
+    buffer [rows][4D + 8] and one weight k-tile [32][128 + 8]."""
+    if dtype == torch.bfloat16 and d > _WGMMA_MAX_D:
+        if rows != _WIDE_ROWS:
+            raise ValueError(f"the bfloat16 kernel holds {_WIDE_ROWS} rows "
+                             f"a block at D > {_WGMMA_MAX_D}")
+        nch, stages = block_ring(d) or (64, 2)
+        return _wide_tile_bytes(d) + stages * _wide_stage_bytes(nch)
+    if dtype == torch.bfloat16:
         if rows != 64:
             raise ValueError("the bfloat16 kernel holds 64 rows a block at "
                              f"D <= {_WGMMA_MAX_D}")
@@ -226,14 +267,13 @@ def block_smem_bytes(dtype: torch.dtype, rows: int, d: int,
     if rows not in _block_row_choices(dtype, d):
         raise ValueError(f"the {dtype} rows route holds "
                          f"{_block_row_choices(dtype, d)} rows a block")
-    es = torch.empty((), dtype=dtype).element_size()
-    return es * (rows * (d + _PAD) * 2 + rows * (4 * d + _PAD)
-                 + _KT * (_NC + _PAD))
+    return 4 * (rows * (d + _PAD) * 2 + rows * (4 * d + _PAD)
+                + _KT * (_NC + _PAD))
 
 
 def _block_row_choices(dtype: torch.dtype, d: int) -> tuple:
     if dtype == torch.bfloat16:
-        return (64,) if d <= _WGMMA_MAX_D else (32,)
+        return (64,) if d <= _WGMMA_MAX_D else (_WIDE_ROWS,)
     return (64, 32, 16)
 
 
@@ -256,9 +296,9 @@ def block_rows(dtype: torch.dtype, t: int, d: int) -> int:
     """Token rows a fused_dit_block block holds (whole images of T rows, or
     on the cluster route 64 rows of one image), which also names the route
     with :func:`block_cluster`: in bfloat16 64 (one warpgroup's wgmma M) up
-    to D = 256, T <= 256; past D = 256 the rows route at the larger of 32
-    and 16 whose tile fits in shared memory; in float32 the largest of 64,
-    32, 16 that fits. Raises if no route holds one image."""
+    to D = 256, T <= 256; past D = 256 the wide route's tile of 32, T <=
+    32, up to D = 576; in float32 the largest of 64, 32, 16 that fits.
+    Raises if no route holds one image."""
     if block_cluster(dtype, t, d) > 1:
         return 64
     for rows in _block_row_choices(dtype, d):
@@ -271,22 +311,54 @@ def block_rows(dtype: torch.dtype, t: int, d: int) -> int:
 def block_route(dtype: torch.dtype, t: int, d: int) -> str:
     """"wgmma" (the bfloat16 tensor-core kernel, whole images a block),
     "cluster" (the same kernel, one thread-block cluster an image of more
-    than 64 tokens) or "rows" (fp32 FMAs over staged k-tiles): the route
-    :func:`block_rows` and :func:`block_cluster` pick."""
+    than 64 tokens), "wide" (bfloat16 past D = 256: mma.sync GEMMs, one
+    thread-block cluster a tile of 32 rows, each block an n-th of every
+    GEMM's output columns) or "rows" (float32: fp32 FMAs over staged
+    k-tiles): the route :func:`block_rows` and :func:`block_cluster`
+    pick."""
     if block_cluster(dtype, t, d) > 1:
         return "cluster"
-    rows = block_rows(dtype, t, d)
-    return "wgmma" if dtype == torch.bfloat16 and rows == 64 else "rows"
+    block_rows(dtype, t, d)
+    if dtype != torch.bfloat16:
+        return "rows"
+    return "wgmma" if d <= _WGMMA_MAX_D else "wide"
 
 
-def block_grid(dtype: torch.dtype, b: int, t: int, d: int) -> int:
+def block_split(dtype: torch.dtype, b: int, t: int, d: int,
+                n_heads: int) -> int:
+    """Blocks of one thread-block cluster on the wide route (1 on every
+    other route): each computes an n-th of every GEMM's output columns and
+    whole heads, so it reads an n-th of every weight. n divides ``n_heads``
+    and is at most 4; of those, the n whose launch over B images takes
+    least by a wave model of an H100: ceil(tiles / clusters of n it holds)
+    waves of blocks that each cost ~ (n + 6) / n, the larger n on a tie.
+    At the frontier's (256, 4, 384) H 8 that is 2: 32 tiles x 4 blocks
+    would take two waves (30 clusters of 4 at once)."""
+    if block_route(dtype, t, d) != "wide":
+        return 1
+    tiles = -(-b // (_WIDE_ROWS // t))
+    return min((n for n in (4, 3, 2, 1) if n_heads % n == 0),
+               key=lambda n: (-(-tiles // _WIDE_CLUSTERS[n])
+                              * (n + _WIDE_FIXED) / n))
+
+
+def block_grid(dtype: torch.dtype, b: int, t: int, d: int,
+               n_heads: int | None = None) -> int:
     """Blocks one launch over B images runs: B x :func:`block_cluster` on
-    the cluster route, else ceil(B / images a block). Each reads every
-    folded weight through L2."""
+    the cluster route; the tiles (ceil(B / images a tile)) x
+    :func:`block_split` on the wide route, which needs ``n_heads``; else
+    ceil(B / images a block). Each reads every folded weight through L2,
+    but on the wide route an n-th of each."""
     n = block_cluster(dtype, t, d)
     if n > 1:
         return b * n
-    return -(-b // (block_rows(dtype, t, d) // t))
+    tiles = -(-b // (block_rows(dtype, t, d) // t))
+    if block_route(dtype, t, d) != "wide":
+        return tiles
+    if n_heads is None:
+        raise ValueError("fused_dit_block: the wide route's grid depends on "
+                         "n_heads")
+    return tiles * block_split(dtype, b, t, d, n_heads)
 
 
 @functools.cache
@@ -307,9 +379,10 @@ def _clusters_fn():
 
 
 def block_max_clusters(d: int, n_heads: int, n_cta: int) -> int:
-    """Clusters of ``n_cta`` blocks of the cluster route at width ``d`` the
-    card holds at once (``cudaOccupancyMaxActiveClusters``); 0 means that
-    such a cluster cannot launch. Card only."""
+    """Clusters of ``n_cta`` blocks the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), of the cluster route at width
+    ``d`` <= 256 or of the wide route past it; 0 means that such a cluster
+    cannot launch. Card only."""
     out = ctypes.c_int(0)
     rc = _clusters_fn()(d, d // n_heads, n_cta, ctypes.byref(out))
     if rc:
@@ -327,9 +400,10 @@ def fused_dit_block(tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2, b2,
     contiguous), D a multiple of 32, head width D / n_heads in (16, 32, 48,
     64), and (:func:`block_rows`, :func:`block_cluster`): in bfloat16 up to
     D = 256 T <= 64 (the wgmma route, one image per block) or 64 < T <= 256
-    (the cluster route, ceil(T / 64) blocks an image); past that the rows
-    route, T <= 32 and D <= 576; in float32 T * D small enough for shared
-    memory (T <= 32 at D = 256)."""
+    (the cluster route, ceil(T / 64) blocks an image); past that the wide
+    route, T <= 32 and D <= 576 (:func:`block_split` blocks a tile); in
+    float32 the rows route, T * D small enough for shared memory (T <= 32
+    at D = 256)."""
     no_autodiff("fused_dit_block", tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2,
                 b2)
     _check_stream_tensor("tok", tok)
@@ -338,7 +412,9 @@ def fused_dit_block(tok, w_qkv, b_qkv, w_pr, b_pr, w1, b1, w2, b2,
         raise ValueError(f"fused_dit_block: D={d} must be a multiple of 32 "
                          f"with head width D/n_heads in {_BLOCK_HEAD_DIMS}")
     rows = block_rows(tok.dtype, t, d)
-    n_cta = block_cluster(tok.dtype, t, d)
+    n_cta = (block_split(tok.dtype, b, t, d, n_heads)
+             if block_route(tok.dtype, t, d) == "wide"
+             else block_cluster(tok.dtype, t, d))
     for name, w, shape in (("w_qkv", w_qkv, (d, 3 * d)),
                            ("b_qkv", b_qkv, (3 * d,)),
                            ("w_pr", w_pr, (d, d)), ("b_pr", b_pr, (d,)),

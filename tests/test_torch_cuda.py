@@ -6,6 +6,7 @@ is installed:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import hashlib
 from unittest import mock
 
 import pytest
@@ -612,9 +613,10 @@ def test_ddpm_paths_launch_groupnorm_silu():
                                      (64, 4, 256, 4), (7, 4, 96, 2)])
 def test_block_kernel_at_the_frontier_widths(dtype, b, t, d, h):
     """K1 at the frontier candidates' widths: heads of 48 (D = 96, 192,
-    384) and 64, D = 384 on the rows route in bf16 (32 rows a block), D =
-    192 (N chunks no multiple of 128) at 16 tokens. fp32 2e-4, bf16 4 ulps
-    of the scale; K2 at the same heads, fp32 1e-5."""
+    384) and 64, D = 384 on the wide route in bf16 (32 rows a tile) and the
+    rows route in float32, D = 192 (N chunks no multiple of 128) at 16
+    tokens. fp32 2e-4, bf16 4 ulps of the scale; K2 at the same heads, fp32
+    1e-5. The wide route's other widths: test_block_kernel_wide_route."""
     args = _block_args(b, t, d, dtype, seed=b + d)
     n0 = kernels.fused_dit_block.launches
     got = kernels.fused_dit_block(*args, h)
@@ -627,6 +629,94 @@ def test_block_kernel_at_the_frontier_widths(dtype, b, t, d, h):
     for g, r, fp32_tol in ((got, ref, 2e-4), (got_a, ref_a, 1e-5)):
         assert float((g.float() - r.float()).abs().max()) <= _tol(
             dtype, r, fp32_tol)
+
+
+@pytest.mark.parametrize("b,t,d,h", [
+    # D = 288 at heads of 16, 32 and 48; one image a tile (T = 32)
+    (5, 32, 288, 18), (9, 4, 288, 9), (33, 16, 288, 6),
+    # D = 576 at heads of 16, 32, 48 and 64 (a ring of two 64-column stages)
+    (3, 16, 576, 36), (9, 4, 576, 18), (2, 32, 576, 12), (7, 4, 576, 9),
+    # heads of 64 past D = 256 (5 and 7 heads: clusters of one block)
+    (33, 16, 384, 6), (7, 4, 320, 5), (6, 5, 448, 7),
+    # the frontier's shape (clusters of 2), and batches that leave the last
+    # tile partly empty
+    (256, 4, 384, 8), (7, 4, 384, 8), (1, 32, 384, 24), (130, 8, 512, 16)])
+def test_block_kernel_wide_route(b, t, d, h):
+    """K1's wide route, bf16 past D = 256 (the frontier's dit_p14_d384_l6):
+    one launch, 4 bf16 ulps of the scale from its plain version."""
+    assert kernels.block_route(torch.bfloat16, t, d) == "wide"
+    args = _block_args(b, t, d, torch.bfloat16, seed=b + t + d)
+    n0 = kernels.fused_dit_block.launches
+    got = kernels.fused_dit_block(*args, h)
+    assert kernels.fused_dit_block.launches == n0 + 1
+    ref = kernels.fused_dit_block_ref(*args, h)
+    torch.cuda.synchronize()
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(
+        torch.bfloat16, ref, 2e-4)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_block_kernel_wide_route_at_every_cluster_size(n):
+    """The wide route with the tile's columns split over clusters of 1, 2,
+    3 and 4 blocks (12 heads divide by each; block_split forced), 4 bf16
+    ulps of the scale, with a partly empty last tile."""
+    args = _block_args(61, 16, 384, torch.bfloat16, seed=n)
+    with mock.patch.object(kernels, "block_split", lambda *a: n):
+        got = kernels.fused_dit_block(*args, 12)
+    ref = kernels.fused_dit_block_ref(*args, 12)
+    torch.cuda.synchronize()
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(
+        torch.bfloat16, ref, 2e-4)
+
+
+@pytest.mark.parametrize("b,t,d,h", [(7, 4, 384, 8), (3, 16, 576, 9)])
+def test_block_kernel_wide_route_where_the_gelu_saturates(b, t, d, h):
+    """The wide route with the MLP's hidden values (unit scale) around each
+    of _SATURATED: 4 bf16 ulps of the scale from its plain version."""
+    args = _block_args(b, t, d, torch.bfloat16, seed=b + t)
+    args[6] = torch.tensor(_SATURATED).repeat(-(-4 * d // 12))[:4 * d].to(
+        "cuda", torch.bfloat16)
+    got = kernels.fused_dit_block(*args, h)
+    ref = kernels.fused_dit_block_ref(*args, h)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(
+        torch.bfloat16, ref, 2e-4)
+
+
+@pytest.mark.parametrize("d,h,n", [(384, 8, 1), (384, 8, 2), (384, 6, 3),
+                                   (384, 8, 4), (576, 9, 3), (288, 18, 3)])
+def test_block_kernel_wide_clusters_fit_the_card(d, h, n):
+    """A cluster of 1-4 wide-route blocks of up to ~227 KB of shared memory
+    each launches: the card holds at least one at once."""
+    assert kernels.block_max_clusters(d, h, n) >= 1
+
+
+def _rows_f32_digest() -> str:
+    """SHA-256 of the float32 rows route's output at the frontier's (256,
+    4, 384) H 8 on seeded inputs."""
+    args = _block_args(256, 4, 384, torch.float32, seed=384)
+    out = kernels.fused_dit_block(*args, 8)
+    return hashlib.sha256(
+        out.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+# the digest of the build before the wide route, on an H100 80GB HBM3
+_ROWS_F32_DIGEST = (
+    "1d763c9124fc10e324606823dd6899da7b539235f25cc5eebe0c415fcd2bf7eb")
+
+
+def test_block_kernel_float32_rows_route_keeps_its_bits():
+    """The float32 rows route at the frontier's (256, 4, 384) H 8 gives
+    the output the build before the bf16 wide route gave, bit for bit, and
+    stays within 2e-4 of the scale of its plain version."""
+    assert kernels.block_route(torch.float32, 4, 384) == "rows"
+    assert _rows_f32_digest() == _ROWS_F32_DIGEST
+    args = _block_args(256, 4, 384, torch.float32, seed=384)
+    got = kernels.fused_dit_block(*args, 8)
+    ref = kernels.fused_dit_block_ref(*args, 8)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= _tol(torch.float32, ref, 2e-4)
 
 
 @pytest.mark.parametrize("b", [1, 5, 64])

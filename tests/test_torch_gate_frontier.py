@@ -213,7 +213,7 @@ def test_short_seq_attention_ref_matches_pallas_at_the_new_widths(b, t, d,
 
 
 def test_widened_limits_and_routes():
-    """K1 takes heads of 48 and 64 and a bf16 stream past 256 on the rows
+    """K1 takes heads of 48 and 64 and a bf16 stream past 256 on the wide
     route (32 rows, so at most 32 tokens there); K2 heads of 48; K6 heads
     up to 256, on the tiles route only past 128. What stays out still
     raises with its reason."""
@@ -221,7 +221,7 @@ def test_widened_limits_and_routes():
     for d, h in ((96, 2), (256, 4)):
         args = [torch.from_numpy(a) for a in _block_args(rng, 2, 4, d)]
         kernels.fused_dit_block(*args, h)
-    assert kernels.block_route(torch.bfloat16, 4, 384) == "rows"
+    assert kernels.block_route(torch.bfloat16, 4, 384) == "wide"
     assert kernels.block_route(torch.bfloat16, 4, 256) == "wgmma"
     assert kernels.block_route(torch.float32, 4, 256) == "rows"
     big = [torch.zeros(s, dtype=torch.bfloat16) for s in (

@@ -480,18 +480,105 @@ def test_block_smem_bytes_fit_at_every_supported_shape(t, d):
 def test_block_smem_bytes_bf16_is_the_kernels_layout():
     """At D = 256: 1024 to align, 16 panels of 8 KB, 8 stages of 8 KB, the
     residual [64][264], 2 x 64 float32 statistics and 24 mbarriers. Past
-    D = 256 the rows route in bf16: X and LN(x) [32][D + 8], the wide
-    buffer [32][4D + 8] and one k-tile [32][136], two bytes each; an image
-    of more than 32 tokens fits no tile there."""
+    D = 256 the wide route: X and LN(x) [32][D + 8] and the wide buffer
+    [32][4D + 8], two bytes each, 8 mbarriers, 1024 to align the ring and
+    its 3 stages of 32 x 384 bf16; an image of more than 32 tokens fits no
+    tile there."""
     assert kernels.block_smem_bytes(torch.bfloat16, 64, 256) == (
         1024 + 16 * 8192 + 8 * 8192 + 64 * 264 * 2 + 512 + 192)
     with pytest.raises(ValueError, match="64 rows"):
         kernels.block_smem_bytes(torch.bfloat16, 32, 256)
     assert kernels.block_rows(torch.bfloat16, 4, 288) == 32
-    assert kernels.block_smem_bytes(torch.bfloat16, 32, 384) == 2 * (
-        2 * 32 * 392 + 32 * 1544 + 32 * 136)
+    assert kernels.block_smem_bytes(torch.bfloat16, 32, 384) == (
+        2 * (2 * 32 * 392 + 32 * 1544) + 64 + 1024 + 3 * 32 * 384 * 2)
     with pytest.raises(ValueError, match="shared memory"):
         kernels.block_rows(torch.bfloat16, 49, 288)
+
+
+@pytest.mark.parametrize("d,ring,nbytes", [
+    (288, (384, 3), 186944),   # 112,128 + 64 + 1024 + 3 x 24,576
+    (384, (384, 3), 223808),   # the frontier's dit_p14_d384_l6
+    (416, (320, 3), 223808),
+    (480, (192, 3), 223808),
+    (544, (64, 3), 223808),
+    (576, (64, 2), 232000)])   # 222,720 + 64 + 1024 + 2 x 4,096
+def test_block_wide_route_layout(d, ring, nbytes):
+    """The wide route (bf16 past D = 256): 32 rows a block, the weight ring
+    the widest chunk of 384 .. 64 columns whose three stages of 32 k-rows
+    fit beside the tile, else two of 64 (D = 576); the bytes are the
+    kernel's (csrc/fused_dit_block.cu smem_bytes_wide) and fit. Past 32
+    tokens, or past D = 576, nothing fits."""
+    assert kernels.block_route(torch.bfloat16, 4, d) == "wide"
+    assert kernels.block_rows(torch.bfloat16, 32, d) == 32
+    assert kernels.block_cluster(torch.bfloat16, 32, d) == 1
+    assert kernels.block_ring(d) == ring
+    assert kernels.block_smem_bytes(torch.bfloat16, 32, d) == nbytes
+    assert nbytes <= 232448
+    with pytest.raises(ValueError, match="32 rows"):
+        kernels.block_smem_bytes(torch.bfloat16, 64, d)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.block_rows(torch.bfloat16, 33, d)
+    assert kernels.block_ring(608) is None
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.block_rows(torch.bfloat16, 4, 608)
+    # float32 keeps the rows route
+    assert kernels.block_route(torch.float32, 4, 384) == "rows"
+    assert kernels.block_split(torch.float32, 256, 4, 384, 8) == 1
+
+
+@pytest.mark.parametrize("b,t,d,h,n", [
+    (256, 4, 384, 8, 2),    # the frontier: 32 tiles x 4 would be two waves
+    (128, 4, 384, 8, 4),    # 16 tiles: one wave of clusters of 4
+    (7, 4, 384, 8, 4),      # one tile, 7 images
+    (512, 4, 384, 8, 2),    # 64 tiles: one wave of 66 clusters of 2
+    (2048, 4, 384, 8, 1),   # 256 tiles: 2 waves of 132 single blocks
+    (33, 16, 384, 6, 3),    # heads of 64: 3 divides 6, 4 does not
+    (3, 32, 288, 9, 3),     # one image a tile
+    (2, 4, 320, 5, 1),      # 5 heads: no cluster
+    (9, 4, 576, 12, 4), (3, 16, 576, 36, 4), (4, 8, 448, 7, 1)])
+def test_block_split_and_grid_wide_route(b, t, d, h, n):
+    """Blocks a tile on the wide route: n divides the heads and is at most
+    4, and of those the one whose waves x per-block cost (n + 6) / n is
+    least at an H100's 132 / 66 / 39 / 30 clusters of 1 / 2 / 3 / 4; the
+    grid is the tiles x n. The grid needs the heads there."""
+    assert kernels.block_split(torch.bfloat16, b, t, d, h) == n
+    tiles = -(-b // (32 // t))
+    assert kernels.block_grid(torch.bfloat16, b, t, d, h) == tiles * n
+    with pytest.raises(ValueError, match="n_heads"):
+        kernels.block_grid(torch.bfloat16, b, t, d)
+    # the other routes take no split
+    assert kernels.block_split(torch.bfloat16, b, 4, 256, 8) == 1
+    assert kernels.block_grid(torch.bfloat16, 64, 16, 256) == 16
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_fused_dit_block_ref_matches_jax_at_the_frontier_width(use_pallas):
+    """The frontier's dit_p14_d384_l6 block (4 tokens of 384, 8 heads of
+    48; the wide route in bf16 on the card): the plain version in float32
+    against the Pallas kernel in interpret mode and its XLA fallback, to
+    the JAX tests' 2e-4, the CPU wrapper bit for bit."""
+    args = _block_args(np.random.default_rng(384), 3, 4, 384)
+    ref = np.asarray(pk.fused_dit_block(*map(jnp.asarray, args), 8,
+                                        use_pallas=use_pallas))
+    got = kernels.fused_dit_block_ref(*map(torch.from_numpy, args),
+                                      8).numpy()
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
+    wrapped = kernels.fused_dit_block(*map(torch.from_numpy, args),
+                                      8).numpy()
+    np.testing.assert_array_equal(wrapped, got)
+
+
+def test_fused_dit_block_bf16_matches_pallas_at_the_frontier_width():
+    """bf16 at (3, 4, 384) with heads of 48 against the Pallas kernel's
+    bf16 rounding sites: 4 bf16 ulps of the output scale, as at D = 256."""
+    args = _block_args(np.random.default_rng(48), 3, 4, 384, scale=0.05)
+    ref = np.asarray(pk.fused_dit_block(
+        *(jnp.asarray(a, jnp.bfloat16) for a in args), 8,
+        use_pallas=True).astype(jnp.float32))
+    got = kernels.fused_dit_block_ref(
+        *(torch.from_numpy(a).bfloat16() for a in args), 8).float().numpy()
+    scale = float(np.abs(ref).max())
+    assert float(np.abs(got - ref).max()) <= 4 * 2.0 ** -8 * scale
 
 
 # ---------------------------------------------------------- flash_attention
