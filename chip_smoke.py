@@ -79,8 +79,8 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
 10. the training path, the protocol of ``scripts/quality_gate_flagship.py``
     cut to the phase's time: the three full-width ``dit_p14_d256_l4``
     experts trained through ``entry.train_experts`` (batch 256, bf16
-    compute, digit subsets of procedural MNIST made on the card) for a few
-    hundred steps each: train steps/s and images/s, every expert's loss
+    compute, digit subsets of procedural MNIST made on the card) for 200
+    steps each: train steps/s and images/s, every expert's loss
     curve (its last 50 steps must average below half its first 10), finite
     EMA trees, a bitwise save / restore through the port's
     ``CheckpointManager``, device ms per step and busy share from a short
@@ -93,21 +93,21 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
 11. SUPERDIFF (``entry.sample_superdiff``): two ``GUIDED_UNET`` experts (the
     ``colored_mnist_guided`` preset's model, random weights), 28 x 28 x 3,
     batch 64, float32, per-expert labels; OR, the rigorous AND, the AND
-    heuristic, FIXED (0.7, 0.3), AVG and the rigorous OR at 100 of the
+    heuristic, FIXED (0.7, 0.3), AVG and the rigorous OR at 50 of the
     preset's 1000 DDPM timesteps (OR and the rigorous AND run all 1000 on
     the trained experts of phase 18);
 12. layout (``entry.sample_layout``): the same two experts, a circular
-    mask, batch 64, 100 timesteps (a cut for time);
+    mask, batch 64, 50 timesteps (a cut for time);
 13. the bbox composition (``entry.sample_ancestral``): three
     ``SHAPES_UNET`` experts, 64 x 64 x 3, float32, weights (1, 1, 1), the
-    ``shapes_bbox`` preset's 500 timesteps cut to 250, batch 4 (the
+    ``shapes_bbox`` preset's 500 timesteps cut to 100, batch 4 (the
     script's default)
     and one timed run at batch 64;
 14. gray + color DDIM (``entry.sample_gray_color``): a 1-channel and a
     3-channel ``unet64``, 64 x 64, batch 128, float32, the ``shapes_ddim``
-    preset's 200 steps cut to 50, ``op="avg"`` (white) and ``op="proj"``
+    preset's 200 steps cut to 20, ``op="avg"`` (white) and ``op="proj"``
     (luma_norm);
-15. the DDIM family on path A's two bf16 experts, batch 128, 20 steps
+15. the DDIM family on path A's two bf16 experts, batch 128, 10 steps
     each: eta = 1, x0 and v prediction, one corrector step below t = 0.5,
     ``dpm_solver_pp_2m`` (logsnr).
     Every path of 11-15: finite output, the exact ``groupnorm_silu`` and
@@ -123,7 +123,7 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     ``scripts/quality_gate_shapes.py`` cut to the phase's time at full
     width: 8192 shapes of 64 x 64 made on the card, the two-factor probe,
     the shape and color experts of ``unet64`` (batch 128, bf16 compute,
-    GroupNorm in PyTorch ops) and ``dit_p8_d256_l8`` (float32) trained 150
+    GroupNorm in PyTorch ops) and ``dit_p8_d256_l8`` (float32) trained 100
     steps each (train steps/s, images/s, loss at start and end,
     a short profile of one expert's steps and of each served cell),
     then the 9 (shape, color) cells at 64 samples and 50 steps through the
@@ -160,7 +160,7 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     path on replayed noise, kappa at the last step, the ``|x| >= 1`` share
     of trained outputs);
 19. a preset through train, sample and compose: two ``mnist_image``
-    experts trained the same way; ``entry.sample_image`` (ddim, 50 steps,
+    experts trained the same way (100 steps); ``entry.sample_image`` (ddim, 50 steps,
     batch 64: 400 + 100 K4 launches) and ``entry.compose_scores`` (em over
     both, 50 steps: 800 + 200 K4 and exactly 50 ``blend_eps`` launches;
     none of K3 with ``fused_blend=False``), each as a path of 11-15; the
@@ -193,7 +193,7 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     (whose gradient launches nothing) counted;
 23. ``eval_superdiff.eval_superdiff``'s mixture protocol (two
     unconditional colored-MNIST ``unet64`` experts, a digit probe; OR, the
-    AND heuristic and the rigorous AND at T 250 (the script's 1000, cut
+    AND heuristic and the rigorous AND at T 100 (the script's 1000, cut
     for time), 256 samples: exactly 8 +
     2 K4 launches per forward; the per-class histogram and half balance
     reported), its OR job on the trained experts (read from the
@@ -208,14 +208,15 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
 24. ``entry.compose_cfg`` by preset: on phase 18's ``colored_mnist_guided``
     expert (ancestral DDPM over its 1000 timesteps, batch 64 = 192 rows,
     K4) and on an ``ito_cross_attention`` expert trained through
-    ``entry.train_image`` (DDIM at the preset's 1000 steps, K4 and K6 on
-    trained weights); each with exact launches, the grid's PNG read back,
+    ``entry.train_image`` (DDIM at 250 of the preset's 1000 steps, K4 and
+    K6 on trained weights); each with exact launches, the grid's PNG read back,
     and its eps at the middle step held against the same call with
     ``fused_gn=False, flash_attn=False`` (1e-5 of the scale);
 25. ``entry.compose_cifar``: the CIFAR-10 stand-in through the binary
     batches, the probe, two unconditional ``unet64`` experts (32 x 32 x 3,
-    float32, batch 256) trained a few hundred steps, solo ancestral DDPM
-    and SUPERDIFF OR at T 1000: exact K4 launches per job, the report and
+    float32, batch 256) trained 100 steps, solo ancestral DDPM and
+    SUPERDIFF OR at T 250 (the script's 1000): exact K4 launches per job,
+    the report and
     the four grids read back, the experts' eps stack at the middle
     timestep against ``fused_gn=False``; ``or_mixture_balance_error``
     reported;
@@ -254,7 +255,7 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     each ``main(argv)`` called in this process without ``--cpu`` (so on the
     card), at the presets' full widths with steps cut by overrides only:
     ``train_image`` twice on ``colored_mnist_guided`` and ``superdiff``
-    OR over the two at 1000 timesteps; ``train_image`` twice on
+    OR over the two at 250 of the 1000 timesteps; ``train_image`` twice on
     ``mnist_image`` and ``compose_scores`` (em) over those; ``fit_pca``,
     ``train_latent_2d`` and ``sample_latent``; ``train_image`` on
     ``ito_cross_attention`` and ``compose_cfg`` on it (K6). Each call's
@@ -266,7 +267,7 @@ Phases, in order; any failure exits non-zero (no phase catches its own):
     rule's ``skipped`` line where matplotlib is missing;
 31. the profilers (``scripts.profile_unet``, ``scripts.profile_dit``,
     ``main(argv)`` in this process without ``--cpu``, at the scripts'
-    widths; rows of 5 chained calls and 2 sampler rounds of 1 call, cut
+    widths; rows of 2 chained calls and 1 sampler round of 1 call, cut
     for time) print their tables: every DDIM call of profile_unet with
     exactly 1200 + 300 K4 launches, every sampler call of profile_dit with
     exactly 1200 ``fused_dit_block`` launches under FUSED_BLOCK, 1200
@@ -357,10 +358,11 @@ FA_ROUTE_LONG_Q = (4, 8, 1024, 64)
 # images of 28 x 28 x 1, batch 64)
 LATENT_N, LATENT_SIZE, LATENT_BATCH, LATENT_STEPS = 10000, 64, 512, 1000
 EM_N, EM_SIZE, EM_BATCH = 8192, 28, 64
-# blend_eps: (K, B, ...) stacks. The latent path's, the DiT path's and the
-# shapes path's blends (all float32 there), compose_scores' (two mnist_image
-# experts, batch 64) and compose_latent_vae's (two digits, 16 latents of
-# 10), then ragged ones, K = 1 and 5
+# blend_eps: (K, B, ...) stacks. The latent path's blend (float32 there),
+# two stacks the size of the DiT path's and the shapes path's eps (those
+# paths launch no blend_eps), compose_scores' (two mnist_image experts,
+# batch 64) and compose_latent_vae's (two digits, 16 latents of 10), then
+# ragged ones, K = 1 and 5
 BLEND_MAIN = (2, LATENT_BATCH, 2)
 BLEND_CONFIG = [(2, 64, 28, 28, 1), (2, 16, 10)]
 # eval_composition(op="avg")'s blend, its widest served shape: two 64 x 64
@@ -393,28 +395,32 @@ FA_PAD_D = (8, 24, 48, 80, 100)
 FA_PAD_SHAPE = (4, 4, 256, 77)
 # training path: the gate's protocol cut to the phase's time. Each of the
 # three full-width experts takes TRAIN_STEPS steps at the gate's batch, the
-# probe PROBE_STEPS (the committed PASS took 48000 and 2000); the served
-# program and the gate's scoring run at the gate's 256 samples, 50 steps
-TRAIN_STEPS, TRAIN_BATCH, PROBE_STEPS, GATE_SAMPLES = 300, 256, 500, 256
+# probe PROBE_STEPS (the committed PASS took 48000 and 2000; 300 expert
+# steps until the smoke outgrew its time: the loss of the last 50 of 200
+# steps is 0.40 of the first 10's); the served program and the gate's
+# scoring run at the gate's 256 samples, 50 steps
+TRAIN_STEPS, TRAIN_BATCH, PROBE_STEPS, GATE_SAMPLES = 200, 256, 500, 256
 PROFILE_TRAIN_STEPS = 20
 # discrete-DDPM paths: colored_mnist_guided (batch 64 of 28 x 28 x 3, 1000
 # timesteps; SD_CUT for the cases cut for time), shapes_bbox (64 x 64 x 3,
-# its 500 timesteps cut to BBOX_T for phase 31's time, batch 4 and a timed
-# batch 64); the gray + color DDIM of shapes_ddim (batch 128, its 200 steps
-# cut to GC_STEPS for time: 100 until phase 31 came); the DDIM family on
-# path A's experts
-SD_BATCH, SD_T, SD_CUT = 64, 1000, 100
-BBOX_BATCH, BBOX_BATCH_TIMED, BBOX_T = 4, 64, 250
-GC_BATCH, GC_STEPS, FAM_STEPS = 128, 50, 20
+# its 500 timesteps cut to BBOX_T, batch 4 and a timed batch 64); the gray
+# + color DDIM of shapes_ddim (batch 128, its 200 steps cut to GC_STEPS);
+# the DDIM family on path A's experts, FAM_STEPS each. Cut for the smoke's
+# time: SD_CUT from 100, BBOX_T from 250, GC_STEPS from 50 (100 until phase
+# 31 came) and FAM_STEPS from 20
+SD_BATCH, SD_T, SD_CUT = 64, 1000, 50
+BBOX_BATCH, BBOX_BATCH_TIMED, BBOX_T = 4, 64, 100
+GC_BATCH, GC_STEPS, FAM_STEPS = 128, 20, 10
 PROFILE_STEPS, UNFUSED_STEPS = 5, 20
 # the shapes gate (phase 16): scripts/quality_gate_shapes.py's protocol cut
 # to the phase's time: its 8192 shapes of 64 x 64 x 3 (made on the card),
 # the probe SG_PROBE_STEPS (its 2000), each configuration's shape and color
 # experts SG_TRAIN_STEPS at its batch 128 (its 12000; 300 until the
-# dit_p4_d256_l8 cell came: both losses fall below a quarter of their start
-# within 100 steps), then its 9 cells at its 64 samples and 50 steps
+# dit_p4_d256_l8 cell came, 150 until the smoke outgrew its time: both
+# losses fall below a quarter of their start within 100 steps), then its 9
+# cells at its 64 samples and 50 steps
 SG_DATA_N, SG_IMG, SG_BATCH = 8192, 64, 128
-SG_TRAIN_STEPS, SG_PROBE_STEPS, SG_SAMPLES, SG_STEPS = 150, 300, 64, 50
+SG_TRAIN_STEPS, SG_PROBE_STEPS, SG_SAMPLES, SG_STEPS = 100, 300, 64, 50
 SG_PROFILE_STEPS = 10
 SG_K1 = (SG_SAMPLES, 64, 256, 8)  # (B, T, D, heads) of the DiT cells' K1
 # the reference's other DiT candidate, dit_p4_d256_l8 (scripts/
@@ -438,14 +444,17 @@ CG_BATCH, CG_STEPS, CG_SCALE = 64, 20, 2.0
 # ignored, removed at the end). Phase 18: two colored_mnist_guided experts
 # trained on disjoint digit subsets, the preset's 4000 steps cut to
 # TRAIN_CFG_STEPS for time, then SUPERDIFF OR and the rigorous AND at its
-# 1000 timesteps, batch SD_BATCH. Phase 19: two mnist_image experts cut the
-# same way, sample_image (ddim) and compose_scores (em) at the preset's 50
-# steps and batch 64. Phase 20: the beta-VAE and its latent expert, the
+# 1000 timesteps, batch SD_BATCH (fewer steps leave the rigorous AND's
+# kappa ill-conditioned: at 150, 6 of its 128 entries moved past 1e-3 from
+# the plain path's). Phase 19: two mnist_image experts, the preset's 4000
+# steps cut to MNIST_STEPS (300 until the smoke outgrew its time),
+# sample_image (ddim) and compose_scores (em) at the preset's 50 steps and
+# batch 64. Phase 20: the beta-VAE and its latent expert, the
 # script's 2000 + 2000 steps cut to VAE_STEPS each, composed at bs 16 over
 # 300 timesteps
 SMOKE_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "outputs", "chip_smoke")
-TRAIN_CFG_STEPS, VAE_STEPS = 300, 300
+TRAIN_CFG_STEPS, MNIST_STEPS, VAE_STEPS = 300, 100, 300
 GUIDED_SUBSETS = ((0, 1, 2, 3, 4), (5, 6, 7, 8, 9))
 MNIST_SUBSETS = ((0, 1, 2), (5, 6, 7))
 PRESET_BATCH, PRESET_STEPS = 64, 50
@@ -475,50 +484,57 @@ GN_DDPM_SPLIT = [((SD_BATCH, 14, 14), (256, 128)),
 # steps cut for time and nothing else (the script's value printed beside
 # each). Phase 21: two shapes_latent ScoreMLP(256, 3, 2) experts on shape
 # subsets (holdouts of every pair of shape 2, of shape 0), the preset's
-# 4000 steps cut to LT_STEPS, served by sample_latent at its 1000 steps;
+# 4000 steps cut to LT_STEPS (1000 until the smoke outgrew its time),
+# served by sample_latent at its 1000 steps;
 # superposition_2d's two ScoreMLP(512, 4, 2) experts, its 20000 steps cut
 # to SP_STEPS, its 1000 sampling steps. Phase 22: eval_composition on
 # shapes, holdout (2, 2), 32 samples a combination, a gray (luma_norm) and
 # an RGB unet64 expert: the preset's 4000 training steps cut to EC_TRAIN,
 # the probe's 1200 to EC_PROBE, its 200 steps to EC_STEPS (EC_ITO_STEPS
 # under ito, whose jvps cost 7x a step; 50 and 20 until phase 31 needed the
-# time). Phase 23: eval_superdiff's mixture protocol with its T 1000 cut to
-# EV_T (for phase 31's time) and its 12000 training and 2000 probe steps to
-# EV_TRAIN and EV_PROBE; the kernel path held to the plain path on the OR
+# time; EC_TRAIN and EC_PROBE 300 until the smoke outgrew its time, then
+# 150). Phase
+# 23: eval_superdiff's mixture protocol with its T 1000 cut to EV_T (250
+# for phase 31's time, then 100) and its 12000 training and 2000 probe
+# steps to EV_TRAIN and EV_PROBE (300 each, then 150); the kernel path held to the plain path on the OR
 # job at EV_BATCH, before the clip), compose_images_ito
 # on phase 22's experts (its 1000 steps cut to CI_STEPS) and
 # summarize_evals
-LT_STEPS, SP_STEPS = 1000, 1000
+LT_STEPS, SP_STEPS = 500, 1000
 LT_HOLDOUTS = {"latent_a": "((2,0),(2,1),(2,2))",
                "latent_b": "((0,0),(0,1),(0,2))"}
-EC_TRAIN, EC_PROBE, EC_STEPS, EC_ITO_STEPS, EC_SAMPLES = 300, 300, 25, 10, 32
+EC_TRAIN, EC_PROBE, EC_STEPS, EC_ITO_STEPS, EC_SAMPLES = 100, 100, 25, 10, 32
 EC_OPS = ("avg", "cfg", "proj", "ito")
 EC_CG_STEPS = 10
-EV_TRAIN, EV_PROBE, EV_T = 300, 300, 250
+EV_TRAIN, EV_PROBE, EV_T = 150, 150, 100
 CI_STEPS = 10
 # phases 24-27, each at its script's published widths, with training and
 # probe steps cut for time and nothing else (the script's value printed
 # beside each). 24: compose_cfg by preset on phase 18's
 # colored_mnist_guided expert (ancestral DDPM over the preset's 1000
 # timesteps, its batch 64) and on an ito_cross_attention expert trained
-# CC_TRAIN of the preset's 4000 steps (DDIM at the preset's 1000 steps,
-# batch 64); 25: compose_cifar (base 64, T 1000, 32 x 32 x 3 float32, 64
-# samples a set) with its 12000 training and 2000 probe steps cut to
+# CC_TRAIN of the preset's 4000 steps (200 until the smoke outgrew its
+# time; DDIM at CC_STEPS of the preset's 1000 steps, batch 64); 25:
+# compose_cifar (base 64, 32 x 32 x 3 float32, 64 samples a set) with its
+# T 1000 cut to CF_T and its 12000 training and 2000 probe steps to
 # CF_TRAIN and CF_PROBE; 26: quality_gate_flagship over unet64 and unet32
 # (batch 256, bf16, 256 samples of 50 steps) with its 12000 and 2000 cut
 # to FG_TRAIN and FG_PROBE; 27: frontier_sweep over FR_CANDIDATES at one
 # budget of FR_TRAIN steps (its 24000-96000)
-CC_TRAIN, CC_STEPS, CF_TRAIN, CF_PROBE = 200, 1000, 100, 100
+CC_TRAIN, CC_STEPS, CF_TRAIN, CF_PROBE, CF_T = 100, 250, 100, 100, 250
 FG_CONFIGS, FG_TRAIN, FG_PROBE = ("unet64", "unet32"), 100, 100
 FR_CANDIDATES, FR_TRAIN = ("dit_p14_d384_l6", "dit_p7_d192_l6_h6"), 150
 CFG_BATCH, CIFAR_BATCH = 64, 64
 # phase 30: the command lines at the presets' widths. Training cut from the
 # presets' 4000 steps to CLI_TRAIN (train_latent_2d's to CLI_LATENT_TRAIN);
-# superdiff at the preset's 1000 timesteps with its batch 64 cut to
-# CLI_SD_BATCH; compose_cfg's 1000 DDIM steps cut to CLI_CFG_STEPS; the
+# superdiff with the preset's 1000 timesteps cut to CLI_SD_T by
+# --schedule.num_timesteps and its batch 64 to CLI_SD_BATCH; compose_cfg's
+# 1000 DDIM steps cut to CLI_CFG_STEPS (CLI_TRAIN 50 and the superdiff's
+# 1000 timesteps kept until the smoke outgrew its time); the
 # rest at the presets' sizes (compose_scores: 50 E-M steps at batch 64;
 # sample_latent: 1000 steps at batch 64; fit_pca on 8192 images)
-CLI_TRAIN, CLI_LATENT_TRAIN, CLI_SD_BATCH, CLI_CFG_STEPS = 50, 100, 16, 200
+CLI_TRAIN, CLI_LATENT_TRAIN, CLI_SD_BATCH, CLI_CFG_STEPS = 20, 100, 16, 200
+CLI_SD_T = 250
 # phase 3 at those phases' new shapes: fused_dit_block at the frontier
 # candidates' bf16 launches (B, T, D, heads) (D 384: the wide route, heads
 # of 48; D 192 at 16 tokens) and the flagship's width at 16 tokens;
@@ -540,13 +556,14 @@ FA_WIDE_D = (160, 256)
 # experts, 50-step DDIM; profile_unet: the UNet of base 64 at 28 x 28 x 1,
 # batch 384, 3 experts; bench_dit_config: p7_d256_l6 at batch 256, 512 and
 # 1024. Cut for time (at the scripts' defaults the phase took 112.4 s):
-# 5 of the scripts' 100 chained calls a row (10 until the dit_p4_d256_l8
-# cell of phase 16 came), bench_dit_config's 3 timed calls a batch size to
-# 1, and profile_dit's sampler A/B from 3 rounds of 3 calls a variant to
-# PROFILE_ROUNDS of PROFILE_CALLS; never a width
-PROFILE_DIT_ARGV = PROFILE_UNET_ARGV = ["--reps", "5"]
+# 2 of the scripts' 100 chained calls a row (10 until the dit_p4_d256_l8
+# cell of phase 16 came, then 5), bench_dit_config's 3 timed calls a batch
+# size to 1, and profile_dit's sampler A/B from 3 rounds of 3 calls a
+# variant to PROFILE_ROUNDS of PROFILE_CALLS (2 rounds until the smoke
+# outgrew its time); never a width
+PROFILE_DIT_ARGV = PROFILE_UNET_ARGV = ["--reps", "2"]
 BENCH_ARGV = ["--iters", "1"]
-PROFILE_ROUNDS, PROFILE_CALLS = 2, 1
+PROFILE_ROUNDS, PROFILE_CALLS = 1, 1
 PROFILE_DIT = dict(patch=7, dim=256, depth=8, n_heads=8, batch=768)
 PROFILER_EXPERTS, PROFILER_DDIM_STEPS = 3, 50
 # phase 3 at their shapes: (B, T, D, heads) of profile_dit's fused_dit_block
@@ -1016,9 +1033,14 @@ def check_latent_kernels(kernels, compose):
     line."""
     gen = torch.Generator().manual_seed(4)
     rows = {}
+    # the floor under any launch: an empty kernel (torch's spin kernel
+    # asked for no cycles), its device time from a trace
+    empty = device_ms(lambda: torch.cuda._sleep(0), match="spin")
+    log(f"an empty kernel launch (torch.cuda._sleep(0)): {empty:.4f} ms on "
+        f"the device in a trace, the floor under every blend_eps time")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        es = torch.empty((), dtype=dtype).element_size()
+        es = dtype.itemsize
         for shape in BLEND_SHAPES:
             k = shape[0]
             eps = torch.randn(*shape, generator=gen).to("cuda", dtype)
@@ -1028,13 +1050,13 @@ def check_latent_kernels(kernels, compose):
             ref = kernels.blend_eps_ref(eps, w)
             err = max_err(got, ref)
             # float32: the kernel keeps the plain version's order and
-            # rounding sites (expected 0); 1e-6 of scale allows a fused
-            # multiply-add on either side
-            tol = tolerance(dtype, ref, 1e-6)
+            # rounding sites, so it gives the same bits (tolerance 0)
+            tol = tolerance(dtype, ref, 0.0)
             err_w = max_err(got, compose.weighted(eps.float(), w))
-            log(f"blend_eps {name} {shape}: max_abs_err={err:.3e} "
-                f"tol={tol:.3e}; vs compose.weighted in float32 "
-                f"{err_w:.3e}")
+            route = kernels.blend_route(eps[0].numel(), dtype)
+            log(f"blend_eps {name} {shape} (route {tuple(route)}): "
+                f"max_abs_err={err:.3e} tol={tol:.3e}; vs compose.weighted "
+                f"in float32 {err_w:.3e}")
             if not err <= tol:
                 fail("blend_eps disagrees with its plain version")
             if shape not in BLEND_TIMED:
@@ -1047,21 +1069,27 @@ def check_latent_kernels(kernels, compose):
             nbytes = (k + 1) * n * es + 4 * k
             bms, by = bound_ms((2 * k + 1) * n, nbytes, torch.float32)
             log(f"  blend_eps {name} {shape}: kernel {ms:.4f} ms ({dev:.4f} "
-                f"ms on the device in a trace), plain "
-                f"{plain:.4f} ms, compose.weighted (PyTorch ops, "
+                f"ms on the device in a trace; the empty launch {empty:.4f}),"
+                f" plain {plain:.4f} ms, compose.weighted (PyTorch ops, "
                 f"fused_blend=False) {ops_ms:.4f} ms, bound {bms:.6f} ms "
                 f"({by}; {nbytes / 1e6:.3f} MB)")
+            if dtype != torch.float32:
+                continue
+            shape_row = dict(shape=list(shape), blend_route=route._asdict(),
+                             max_abs_err=err, ms=ms, dev_ms=dev,
+                             plain_ms=plain, bound_ms=bms, bound_by=by,
+                             library_ms=None)
             if shape == BLEND_MAIN:
                 # no single PyTorch call computes the normalised blend
                 rows[("blend_eps", dtype)] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=None, config_path_shapes=[])
-            elif shape in BLEND_CONFIG and dtype == torch.float32:
-                rows[("blend_eps", dtype)]["config_path_shapes"].append(dict(
-                    shape=list(shape), max_abs_err=err, ms=ms, dev_ms=dev,
-                    plain_ms=plain, bound_ms=bms, bound_by=by,
-                    library_ms=None))
-            elif shape == BLEND_EVAL_AVG and dtype == torch.float32:
+                    max_abs_err=err, ms=ms, dev_ms=dev, plain_ms=plain,
+                    bound_ms=bms, bound_by=by, library_ms=None,
+                    blend_route=route._asdict(), empty_launch_dev_ms=empty,
+                    config_path_shapes=[], timed_shapes=[])
+            elif shape in BLEND_CONFIG:
+                rows[("blend_eps", dtype)]["config_path_shapes"].append(
+                    shape_row)
+            elif shape == BLEND_EVAL_AVG:
                 # compose.weighted's four ops on the device: the yardstick
                 ops_dev = device_ms(lambda: compose.weighted(eps, w),
                                     match="")
@@ -1070,18 +1098,9 @@ def check_latent_kernels(kernels, compose):
                     f"({dev / bms:.1f}x); compose.weighted's ops "
                     f"{ops_dev:.4f} ms on the device")
                 rows[("blend_eps", dtype)]["eval_avg_shape"] = dict(
-                    shape=list(shape), max_abs_err=err, ms=ms, dev_ms=dev,
-                    plain_ms=plain, weighted_ms=ops_ms,
-                    weighted_dev_ms=ops_dev, bound_ms=bms, bound_by=by,
-                    library_ms=None)
-        if dtype == torch.float32:
-            # the floor under any launch: an empty kernel (torch's spin
-            # kernel asked for no cycles), its device time from a trace
-            empty = device_ms(lambda: torch.cuda._sleep(0), match="spin")
-            log(f"an empty kernel launch (torch.cuda._sleep(0)): {empty:.4f} "
-                f"ms on the device in a trace, the floor under blend_eps's "
-                f"bound of {rows[('blend_eps', dtype)]['bound_ms']:.7f} ms")
-            rows[("blend_eps", dtype)]["empty_launch_dev_ms"] = empty
+                    shape_row, weighted_ms=ops_ms, weighted_dev_ms=ops_dev)
+            else:
+                rows[("blend_eps", dtype)]["timed_shapes"].append(shape_row)
         for m, k, n in MM_SHAPES:
             a = torch.randn(m, k, generator=gen).to("cuda", dtype)
             b = torch.randn(k, n, generator=gen).to("cuda", dtype)
@@ -1150,8 +1169,7 @@ def profile_steps(label: str, fn, steps: int) -> None:
     ``steps`` sampler steps, and the device kernels that take the most time
     there, by name."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, sec = timed(fn)
     by_name = {}
     for e in prof.events():
@@ -2547,11 +2565,11 @@ def preset_paths(card, entry, unet, kernels, attention) -> dict:
     compose_scores calls."""
     log(f"mnist_image: two UNet experts (base 64, (1, 2, 4), 28 x 28 x 1) "
         f"through entry.train_image, batch 128, float32, VPSchedule; the "
-        f"preset's 4000 steps cut to {TRAIN_CFG_STEPS} for time")
+        f"preset's 4000 steps cut to {MNIST_STEPS} for time")
     names = ("expert_a", "expert_b")
     trees = train_named(card, entry, kernels, attention, "mnist_image",
                         names, MNIST_SUBSETS,
-                        [f"--train.steps={TRAIN_CFG_STEPS}"], False, 128)
+                        [f"--train.steps={MNIST_STEPS}"], False, 128)
     loaded = entry.load_named("mnist_image", names, SMOKE_OUT)
     same_bits(trees, loaded, "mnist_image experts")
     del trees
@@ -3257,24 +3275,25 @@ def cifar_path(card, entry, kernels, attention) -> dict:
     with captured_training(entry) as trained, recorded_grids() as grids, \
             per_job("ddpm_ancestral"), per_job("superdiff"):
         rep, sec = timed(lambda: entry.compose_cifar(
-            T=SD_T, train_steps=CF_TRAIN, probe_steps=CF_PROBE,
+            T=CF_T, train_steps=CF_TRAIN, probe_steps=CF_PROBE,
             out=out_dir))
     total = {k: sum(c[k] for _, c, _, _ in jobs) for k in jobs[0][1]}
     log(f"compose_cifar (the procedural CIFAR-10 stand-in through the binary "
         f"batches, 8192 images of 32 x 32 x 3; two unconditional unet64 "
         f"experts on classes {{0-4}} and {{5-9}}, float32, batch 256, "
-        f"DDPMSchedule(1000), EMA 0.999; the script's 12000 steps cut to "
-        f"{CF_TRAIN}, its probe's 2000 to {CF_PROBE}; solo ancestral and "
-        f"SUPERDIFF OR at T {SD_T}, {CIFAR_BATCH} samples each): {sec:.1f} s "
+        f"DDPMSchedule({CF_T}) (the script's 1000), EMA 0.999; the "
+        f"script's 12000 steps cut to {CF_TRAIN}, its probe's 2000 to "
+        f"{CF_PROBE}; solo ancestral and SUPERDIFF OR at T {CF_T}, "
+        f"{CIFAR_BATCH} samples each): {sec:.1f} s "
         f"({card}); launches {total}")
     for i, (_, losses) in enumerate(trained):
         loss_curve(f"CIFAR expert {i}", losses)
-    for (name, counts, s, out), forwards in zip(jobs, (SD_T, SD_T,
-                                                       2 * SD_T)):
+    for (name, counts, s, out), forwards in zip(jobs, (CF_T, CF_T,
+                                                       2 * CF_T)):
         want = dict.fromkeys(counts, 0)
         want.update(groupnorm_silu=8 * forwards,
                     groupnorm_silu_split=2 * forwards)
-        log(f"  {name}: {s:.3f} s = {s / SD_T * 1e3:.3f} ms/step, "
+        log(f"  {name}: {s:.3f} s = {s / CF_T * 1e3:.3f} ms/step, "
             f"{CIFAR_BATCH / s:.1f} images/s; launches {counts}; |x| >= 1 "
             f"at {float((out.abs() >= 1).float().mean()):.3f}")
         if counts != want or not bool(torch.isfinite(out).all()) or \
@@ -3295,9 +3314,9 @@ def cifar_path(card, entry, kernels, attention) -> dict:
     x = es.start(entry._subkey(0, 50), (CIFAR_BATCH, 32, 32, 3), None,
                  "cuda")[0]
     hold_eps("compose_cifar, the two experts' eps stack",
-             es.mixture_stack(params, 64, SD_T, "cuda", True),
-             es.mixture_stack(params, 64, SD_T, "cuda", False), x,
-             SD_T // 2, 1e-5)
+             es.mixture_stack(params, 64, CF_T, "cuda", True),
+             es.mixture_stack(params, 64, CF_T, "cuda", False), x,
+             CF_T // 2, 1e-5)
     return {"compose_cifar": total}
 
 
@@ -3823,8 +3842,9 @@ def command_lines(card, entry, kernels, attention) -> dict:
     log(f"command lines on the card, in process, no --cpu ({card}); "
         f"training cut to {CLI_TRAIN} steps (the presets' 4000), "
         f"train_latent_2d to {CLI_LATENT_TRAIN}, superdiff's batch 64 to "
-        f"{CLI_SD_BATCH} (1000 timesteps), compose_cfg's 1000 DDIM steps "
-        f"to {CLI_CFG_STEPS}; cuDNN deterministic for the phase")
+        f"{CLI_SD_BATCH} and its 1000 timesteps to {CLI_SD_T}, "
+        f"compose_cfg's 1000 DDIM steps to {CLI_CFG_STEPS}; cuDNN "
+        f"deterministic for the phase")
     # without matplotlib (the card's machine) the plots are skipped; with
     # it, train_latent_2d's latents scatter encodes the data once more
     has_mpl = importlib.util.find_spec("matplotlib") is not None
@@ -3854,19 +3874,20 @@ def command_lines(card, entry, kernels, attention) -> dict:
                                 out=direct, overrides=steps)
         same_leaves(f"train_image {name}", got[0], ref[0])
         same_leaves(f"train_image {name} losses", got[1], ref[1])
-    sd = [f"--sample.batch_size={CLI_SD_BATCH}"]
+    sd = [f"--sample.batch_size={CLI_SD_BATCH}",
+          f"--schedule.num_timesteps={CLI_SD_T}"]
     (got,), counts, sec = cli_call(
         "superdiff", ["--experts", '["cli_a","cli_b"]', "--labels",
                       "[[3,3],[7,7]]", "--out", CLI_OUT] + sd, entry,
         "sample_superdiff", kernels, attention)
-    fw = 2 * SD_T
+    fw = 2 * CLI_SD_T
     check("cli_superdiff", counts, {"groupnorm_silu": 8 * fw,
                                     "groupnorm_silu_split": 2 * fw}, sec)
     trees = entry.load_named("colored_mnist_guided", ["cli_a", "cli_b"],
                              CLI_OUT, sd)
     ref = entry.sample_superdiff(
         trees, Draws(42, "cuda").normal((CLI_SD_BATCH, 28, 28, 3)),
-        [[3, 3], [7, 7]], seed=42)
+        [[3, 3], [7, 7]], num_timesteps=CLI_SD_T, seed=42)
     same_leaves("superdiff", got, ref)
     log(f"  superdiff OR on the trained experts: |x| >= 1 at "
         f"{float((got.abs() >= 1).float().mean()):.3f} of the outputs")

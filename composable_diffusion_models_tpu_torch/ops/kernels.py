@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.autograd.forward_ad as fwAD
@@ -687,12 +688,33 @@ def blend_eps_ref(eps_stack: torch.Tensor,
     return (acc / wsum).to(eps_stack.dtype)
 
 
+# threads a block of csrc/blend_eps.cu, one item of the output a thread
+_BLEND_THREADS = 256
+
+
+class BlendRoute(NamedTuple):
+    """blend_eps's launch: ``width`` the elements of an item (one 16-byte
+    vector, or 1 where the plane's length is not a multiple of it) and
+    ``grid`` the blocks, enough to cover the plane's items."""
+    width: int
+    grid: int
+
+
+def blend_route(n: int, dtype: torch.dtype) -> BlendRoute:
+    """The launch for planes of ``n`` elements of ``dtype``: 16-byte items
+    where ``n`` is a multiple of the vector width, single elements
+    elsewhere, and the fewest 256-thread blocks that cover them."""
+    vec = 16 // dtype.itemsize
+    width = vec if n % vec == 0 else 1
+    return BlendRoute(width, -(-(n // width) // _BLEND_THREADS))
+
+
 @functools.cache
 def _blend_fn():
     fn = library("blend_eps").blend_eps_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -702,7 +724,8 @@ def blend_eps(eps_stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     (K, B, ...) stack: the kernel form of ``compose.weighted``, in the
     stack's dtype. The weights stay on the device; nothing is read back.
 
-    Kernel limits: float32 or bfloat16 stack, contiguous, K >= 1 (any K);
+    Kernel limits: float32 or bfloat16 stack, contiguous, K >= 1 (any K;
+    K <= 4 have their own kernels); the launch is :func:`blend_route`'s;
     ``weights`` a (K,) float32 tensor on the stack's device. The per-sample
     (K, B) weights that ``compose.weighted`` also takes are not the
     kernel's and raise: call ``compose.weighted`` with them."""
@@ -733,9 +756,10 @@ def blend_eps(eps_stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
                       device=eps_stack.device)
     if out.numel() == 0:
         return out
+    route = blend_route(out.numel(), eps_stack.dtype)
     rc = _blend_fn()(_DTYPE_CODE[eps_stack.dtype], _ptr(eps_stack),
                      weights.data_ptr(), _ptr(out), out.numel(), k,
-                     _stream_ptr(eps_stack))
+                     route.width, route.grid, _stream_ptr(eps_stack))
     if rc:
         raise RuntimeError(f"blend_eps kernel launch failed: CUDA error {rc}")
     blend_eps.launches += 1

@@ -319,14 +319,24 @@ def test_unet_paths_launch_their_kernels():
     assert float((out - ein).abs().max()) <= 1e-4 * float(ein.abs().max())
 
 
+def _same_bits(got, ref):
+    return got.dtype == ref.dtype and got.shape == ref.shape and torch.equal(
+        got.contiguous().view(torch.uint8), ref.contiguous().view(torch.uint8))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
     (2, 512, 2), (3, 64, 28, 28, 1), (2, 8, 64, 64, 3), (3, 7, 5), (2, 1, 1),
-    (1, 9, 33), (5, 1000, 3)])
+    (1, 9, 33), (5, 1000, 3), (2, 4096), (2, 4097), (2, 1572864),
+    (2, 1572872)])
 def test_blend_eps_matches_plain_version(dtype, shape):
-    """The kernel keeps the plain version's order and rounding sites:
-    1e-6 of scale in float32 (a fused multiply-add on either side), the
-    shared 4-ulp bar in bf16; 1e-5 from ``compose.weighted`` in float32."""
+    """The kernel keeps the plain version's order and rounding sites (per
+    expert a rounded product and a rounded add, one IEEE division, one
+    rounding to the stack's type): the plain version's bits in both dtypes;
+    1e-5 of scale from ``compose.weighted`` in float32. Past the served
+    shapes: both sides of the switch from 16-byte items to single
+    elements, and a large plane of whole blocks and one of whole vectors
+    whose last block is partly empty."""
     g = torch.Generator().manual_seed(sum(shape))
     eps = torch.randn(*shape, generator=g).to("cuda", dtype)
     w = (torch.rand(shape[0], generator=g) + 0.5).cuda()
@@ -335,12 +345,67 @@ def test_blend_eps_matches_plain_version(dtype, shape):
     torch.cuda.synchronize()
     assert kernels.blend_eps.launches == n0 + 1
     ref = kernels.blend_eps_ref(eps, w)
-    assert got.dtype == dtype and got.shape == eps.shape[1:]
-    assert float((got.float() - ref.float()).abs().max()) <= _tol(
-        dtype, ref, 1e-6)
+    assert _same_bits(got, ref)
     if dtype == torch.float32:
         assert float((got - compose.weighted(eps, w)).abs().max()) <= _tol(
             dtype, ref, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_blend_eps_each_k_small_and_large(dtype, k):
+    """Each K's kernel (K <= 4 its own, K = 5 the run-time-K one) on a
+    small stack, a large one (past one resident wave of blocks) and one
+    past the 50 MB L2: the plain version's bits, one launch a call."""
+    for n in (3000, 1351680, 2 ** 23 + 8):
+        g = torch.Generator().manual_seed(k + n)
+        eps = torch.randn(k, n, generator=g).to("cuda", dtype)
+        w = (torch.rand(k, generator=g) + 0.5).cuda()
+        n0 = kernels.blend_eps.launches
+        got = kernels.blend_eps(eps, w)
+        torch.cuda.synchronize()
+        assert kernels.blend_eps.launches == n0 + 1
+        assert _same_bits(got, kernels.blend_eps_ref(eps, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 5])
+def test_blend_eps_on_every_route(dtype, k):
+    """``blend_route`` forced onto each item width, with the covering grid
+    and with 1 and 1000 blocks more (blocks with no item): the plain
+    version's bits on each."""
+    vec = 16 // dtype.itemsize
+    n = 8 * 3001
+    g = torch.Generator().manual_seed(k)
+    eps = torch.randn(k, n, generator=g).to("cuda", dtype)
+    w = (torch.rand(k, generator=g) + 0.5).cuda()
+    ref = kernels.blend_eps_ref(eps, w)
+    for width in (vec, 1):
+        cover = -(-(n // width) // 256)
+        for grid in (cover, cover + 1, cover + 1000):
+            route = kernels.BlendRoute(width, grid)
+            with mock.patch.object(kernels, "blend_route",
+                                   lambda *a, r=route: r):
+                got = kernels.blend_eps(eps, w)
+            torch.cuda.synchronize()
+            assert _same_bits(got, ref), route
+
+
+def test_blend_eps_refuses_a_route_it_cannot_take():
+    """The C entry returns cudaErrorInvalidValue for a route outside its
+    limits (an item neither 16 bytes nor one element, a plane not of whole
+    items, no block, a grid that does not cover the items): the wrapper
+    raises and counts no launch."""
+    w = torch.ones(2, device="cuda")
+    n0 = kernels.blend_eps.launches
+    for n, route in ((36, (2, 1)), (35, (4, 1)), (36, (1, 0)),
+                     (4096, (4, 3)), (4096, (1, 15))):
+        eps = torch.zeros(2, n, device="cuda")
+        with mock.patch.object(kernels, "blend_route",
+                               lambda *a, r=route: kernels.BlendRoute(*r)):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                kernels.blend_eps(eps, w)
+    assert kernels.blend_eps.launches == n0
 
 
 def test_blend_eps_rejects_on_the_card():
@@ -859,13 +924,13 @@ def test_wrappers_refuse_autodiff_on_the_card():
 def test_blend_eps_at_the_config_paths_shapes(shape):
     """K3 at ``compose_scores``' blend (two ``mnist_image`` experts, batch
     64) and ``compose_latent_vae``'s (two digits, 16 latents of 10),
-    float32: 1e-6 of the scale from its plain version."""
+    float32: its plain version's bits."""
     g = torch.Generator().manual_seed(len(shape))
     eps = torch.randn(*shape, generator=g).cuda()
     w = torch.ones(shape[0], device="cuda")
     got = kernels.blend_eps(eps, w)
     ref = kernels.blend_eps_ref(eps, w)
-    assert float((got - ref).abs().max()) <= _tol(torch.float32, ref, 1e-6)
+    assert _same_bits(got, ref)
 
 
 def _launches():

@@ -47,7 +47,9 @@ def _np(x):
 # ---------------------------------------------------------------- blend_eps
 BLEND_CASES = [((3, 2, 8, 8, 4), [1.0, 2.0, 0.5]),   # the JAX test's shape
                ((2, 16, 2), [1.0, 1.0]),             # the latent stack
-               ((1, 3, 5), [0.7]), ((5, 4, 7, 3), [0.1, 3.0, 1.0, 2.0, 0.4])]
+               ((1, 3, 5), [0.7]), ((5, 4, 7, 3), [0.1, 3.0, 1.0, 2.0, 0.4]),
+               ((3, 7, 5), [0.6, 1.4, 0.9]),         # ragged: 35 a plane
+               ((4, 8, 16), [0.5, 1.5, 2.0, 0.25])]  # K = 4
 
 
 @pytest.mark.parametrize("shape,w", BLEND_CASES)
@@ -109,6 +111,50 @@ def test_blend_eps_rejects(bad):
     with pytest.raises(ValueError, match="compose.weighted"
                        if bad == "per_sample" else None):
         kernels.blend_eps(eps, w)
+
+
+# blend_route at the served stacks (latent, compose_scores,
+# compose_latent_vae, eval_composition(avg)), the smoke's larger, ragged and
+# K = 5 ones and a stack past L2: (K, n) -> (width, grid) in float32 and
+# bfloat16 (the route reads only n)
+BLEND_ROUTES = [
+    ((2, 1024), (4, 1), (8, 1)),
+    ((2, 50176), (4, 49), (8, 25)),
+    ((2, 160), (4, 1), (8, 1)),
+    ((2, 393216), (4, 384), (8, 192)),
+    ((3, 1605632), (4, 1568), (8, 784)),
+    ((2, 1572864), (4, 1536), (8, 768)),
+    ((3, 35), (1, 1), (1, 1)),
+    ((1, 297), (1, 2), (1, 2)),
+    ((2, 1), (1, 1), (1, 1)),
+    ((5, 3000), (4, 3), (8, 2)),
+    ((5, 512), (4, 1), (8, 1)),
+    ((2, 4194304), (4, 4096), (8, 2048))]
+
+
+@pytest.mark.parametrize("kn,f32,bf16", BLEND_ROUTES)
+def test_blend_route_pinned(kn, f32, bf16):
+    _, n = kn
+    assert tuple(kernels.blend_route(n, torch.float32)) == f32
+    assert tuple(kernels.blend_route(n, torch.bfloat16)) == bf16
+
+
+@pytest.mark.parametrize("dtype,vec", [(torch.float32, 4),
+                                       (torch.bfloat16, 8)])
+def test_blend_route_switch_points(dtype, vec):
+    """16-byte items while n is a multiple of the vector width, single
+    elements one past it; a second block of 256 threads one item past the
+    first block's."""
+    assert kernels.blend_route(vec * 1000, dtype) == (vec, 4)
+    assert kernels.blend_route(vec * 1000 + 1, dtype) == (
+        1, -(-(vec * 1000 + 1) // 256))
+    assert kernels.blend_route(vec * 256, dtype) == (vec, 1)
+    assert kernels.blend_route(vec * 257, dtype) == (vec, 2)
+    assert kernels.blend_route(255, dtype) == (1, 1)
+    assert kernels.blend_route(257, dtype) == (1, 2)
+    for n in (1, 35, vec * 3001, 2 ** 24 + 1):
+        width, grid = kernels.blend_route(n, dtype)
+        assert n % width == 0 and (grid - 1) * 256 < n // width <= grid * 256
 
 
 # ------------------------------------------------------------------- matmul
