@@ -17,6 +17,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .utils.profiling import annotate
+
 
 @functools.lru_cache(maxsize=256)
 def _constant(values: tuple, dtype: torch.dtype,
@@ -53,8 +55,9 @@ def _kexp(w, ref: torch.Tensor) -> torch.Tensor:
 
 def weighted(eps_stack: torch.Tensor, weights) -> torch.Tensor:
     """eps = sum_i w_i eps_i / sum_i w_i over the leading expert axis."""
-    w = _kexp(weights, eps_stack)
-    return (w * eps_stack).sum(dim=0) / w.sum(dim=0)
+    with annotate("cdm.blend"):
+        w = _kexp(weights, eps_stack)
+        return (w * eps_stack).sum(dim=0) / w.sum(dim=0)
 
 
 def kappa_ito(sigma_t, divs: Tuple[torch.Tensor, torch.Tensor],

@@ -137,6 +137,7 @@ from .ops.kernels import blend_eps
 from .rng import Draws, as_draws, fold_in
 from .utils import viz
 from .utils.config import get_config, save_yaml
+from .utils.profiling import annotate
 from .samplers import ddim, make_cfg_eps_fn
 from .schedules import DDPMSchedule, VPSchedule
 
@@ -273,19 +274,21 @@ def sample(params_list: Sequence[Any], x_init, n_steps: int = 50,
     ``dit_p8_d256_l8`` takes class labels). ``labels``: for a model with
     label slots, one (K, 1) batch-constant label tensor per slot, row i
     for expert i (the folded DiT folds them into its per-step weights)."""
-    dev = resolve_device(device)
-    model = dataclasses.replace(model, dtype=dtype)
-    stack = ExpertStack(make_folded_apply(model, fused_block),
-                        load_experts(params_list, dev, dtype))
-    w = torch.ones((stack.k,), dtype=torch.float32, device=dev)
-    labs = [per_expert(torch.as_tensor(lab).to(dev)) for lab in labels]
+    with annotate("cdm.sample"):
+        dev = resolve_device(device)
+        model = dataclasses.replace(model, dtype=dtype)
+        stack = ExpertStack(make_folded_apply(model, fused_block),
+                            load_experts(params_list, dev, dtype))
+        w = torch.ones((stack.k,), dtype=torch.float32, device=dev)
+        labs = [per_expert(torch.as_tensor(lab).to(dev)) for lab in labels]
 
-    def eps_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        # bf16 experts inside the fp32 sampler, blended in fp32
-        return weighted(stack(x.to(dtype), t.to(dtype), *labs).float(), w)
+        def eps_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+            # bf16 experts inside the fp32 sampler, blended in fp32
+            return weighted(stack(x.to(dtype), t.to(dtype), *labs).float(),
+                            w)
 
-    x = torch.as_tensor(x_init, dtype=torch.float32).to(dev)
-    return ddim(eps_fn, VPSchedule(), x, n_steps)
+        x = torch.as_tensor(x_init, dtype=torch.float32).to(dev)
+        return ddim(eps_fn, VPSchedule(), x, n_steps)
 
 
 @torch.inference_mode()

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.kernels import fused_dit_block, ln_f32, short_seq_attention
+from ..utils.profiling import annotate
 from .embeddings import sinusoidal_embedding
 
 
@@ -253,27 +254,28 @@ def make_folded_apply(model: DiT, fused_block: bool = True,
         n_tok = gh * gw
         cdt = model.dtype or x.dtype
 
-        # conditioning vector (1, D): time + summed batch-constant labels
-        t1 = _batch1("t", t).to(x.device)
-        te = p["TimeEmbedding_0"]
-        c = _dense(F.silu(_dense(sinusoidal_embedding(t1, d), te["Dense_0"],
-                                 cdt)), te["Dense_1"], cdt)
-        if model.num_classes and len(labels) != len(model.num_classes):
-            raise ValueError(f"model takes {len(model.num_classes)} label "
-                             f"slots, got {len(labels)}")
-        for i in range(len(model.num_classes)):
-            lab = _batch1(f"label {i}", labels[i]).to(x.device).long()
-            c = c + p[f"label_emb_{i}"]["embedding"].to(cdt)[lab]
-        sc = F.silu(c)
+        with annotate("cdm.dit.embed"):
+            # conditioning vector (1, D): time + summed batch-constant labels
+            t1 = _batch1("t", t).to(x.device)
+            te = p["TimeEmbedding_0"]
+            c = _dense(F.silu(_dense(sinusoidal_embedding(t1, d),
+                                     te["Dense_0"], cdt)), te["Dense_1"], cdt)
+            if model.num_classes and len(labels) != len(model.num_classes):
+                raise ValueError(f"model takes {len(model.num_classes)} "
+                                 f"label slots, got {len(labels)}")
+            for i in range(len(model.num_classes)):
+                lab = _batch1(f"label {i}", labels[i]).to(x.device).long()
+                c = c + p[f"label_emb_{i}"]["embedding"].to(cdt)[lab]
+            sc = F.silu(c)
 
-        # patchify as GEMM: (B, N, p*p*C) x (p*p*C, D); the HWIO kernel
-        # flattens in (ph, pw, C) order
-        w_pat = p["patchify"]["kernel"].reshape(patch * patch * cin, d)
-        xp = x.to(cdt).reshape(b, gh, patch, gw, patch, cin)
-        xp = xp.permute(0, 1, 3, 2, 4, 5).reshape(b, n_tok,
-                                                  patch * patch * cin)
-        tok = (xp @ w_pat.to(cdt) + p["patchify"]["bias"].to(cdt)
-               + p["pos_emb"].to(cdt))
+            # patchify as GEMM: (B, N, p*p*C) x (p*p*C, D); the HWIO kernel
+            # flattens in (ph, pw, C) order
+            w_pat = p["patchify"]["kernel"].reshape(patch * patch * cin, d)
+            xp = x.to(cdt).reshape(b, gh, patch, gw, patch, cin)
+            xp = xp.permute(0, 1, 3, 2, 4, 5).reshape(b, n_tok,
+                                                      patch * patch * cin)
+            tok = (xp @ w_pat.to(cdt) + p["patchify"]["bias"].to(cdt)
+                   + p["pos_emb"].to(cdt))
 
         def ln_gemm(h, w_f, b_f):
             """LN(h) @ w_f + b_f, the normalisation materialised or folded
@@ -288,8 +290,8 @@ def make_folded_apply(model: DiT, fused_block: bool = True,
             y = (g - mu * w_f.float().sum(dim=0)) * torch.rsqrt(var + 1e-6)
             return y.to(h.dtype) + b_f
 
-        for i in range(model.depth):
-            bp = p[f"block_{i}"]
+        def fold(bp):
+            """One block's per-step folded weights and biases."""
             mod = _dense(sc, bp["Dense_0"], cdt)[0]  # (6D,) per-step consts
             (sa_shift, sa_scale, sa_gate,
              m_shift, m_scale, m_gate) = mod.chunk(6)
@@ -298,31 +300,38 @@ def make_folded_apply(model: DiT, fused_block: bool = True,
                 v.to(cdt) for v in _attn_kernels(bp, d))
             w1, b1 = bp["Dense_1"]["kernel"].to(cdt), bp["Dense_1"]["bias"].to(cdt)
             w2, b2 = bp["Dense_2"]["kernel"].to(cdt), bp["Dense_2"]["bias"].to(cdt)
-            w_qkv_f = w_qkv * (1.0 + sa_scale)[:, None]
-            b_qkv_f = b_qkv + sa_shift @ w_qkv
-            w_pr_f, b_pr_f = w_pr * sa_gate[None, :], b_pr * sa_gate
-            w1_f = w1 * (1.0 + m_scale)[:, None]
-            b1_f = b1 + m_shift @ w1
-            w2_f, b2_f = w2 * m_gate[None, :], b2 * m_gate
+            return (w_qkv * (1.0 + sa_scale)[:, None],
+                    b_qkv + sa_shift @ w_qkv,
+                    w_pr * sa_gate[None, :], b_pr * sa_gate,
+                    w1 * (1.0 + m_scale)[:, None], b1 + m_shift @ w1,
+                    w2 * m_gate[None, :], b2 * m_gate)
 
+        def block(tok, w_qkv_f, b_qkv_f, w_pr_f, b_pr_f, w1_f, b1_f, w2_f,
+                  b2_f):
             if fused_block and not fold_ln:
-                tok = fused_dit_block(tok, w_qkv_f, b_qkv_f, w_pr_f, b_pr_f,
-                                      w1_f, b1_f, w2_f, b2_f, model.n_heads)
-                continue
+                return fused_dit_block(tok, w_qkv_f, b_qkv_f, w_pr_f, b_pr_f,
+                                       w1_f, b1_f, w2_f, b2_f, model.n_heads)
             qkv = ln_gemm(tok, w_qkv_f, b_qkv_f)
             o = (short_seq_attention(qkv, model.n_heads) if pallas_attn
                  else einsum_attention(qkv, model.n_heads, qkv.dtype))
             tok = tok + (o @ w_pr_f + b_pr_f)
             h = F.gelu(ln_gemm(tok, w1_f, b1_f), approximate="tanh")
-            tok = tok + (h @ w2_f + b2_f)
+            return tok + (h @ w2_f + b2_f)
 
-        # final adaLN folded into the fp32 unpatchify head
-        fmod = _dense(sc, p["final_mod"], cdt)[0].float()
-        f_shift, f_scale = fmod.chunk(2)
-        w_u = p["unpatchify"]["kernel"].float()
-        out = (ln_f32(tok).float() @ (w_u * (1.0 + f_scale)[:, None])
-               + (p["unpatchify"]["bias"].float() + f_shift @ w_u))
-        out = out.reshape(b, gh, gw, patch, patch, cin)
-        return out.permute(0, 1, 3, 2, 4, 5).reshape(b, hh, ww, cin)
+        for i in range(model.depth):
+            with annotate("cdm.dit.fold"):
+                folded = fold(p[f"block_{i}"])
+            with annotate("cdm.dit.block"):
+                tok = block(tok, *folded)
+
+        with annotate("cdm.dit.head"):
+            # final adaLN folded into the fp32 unpatchify head
+            fmod = _dense(sc, p["final_mod"], cdt)[0].float()
+            f_shift, f_scale = fmod.chunk(2)
+            w_u = p["unpatchify"]["kernel"].float()
+            out = (ln_f32(tok).float() @ (w_u * (1.0 + f_scale)[:, None])
+                   + (p["unpatchify"]["bias"].float() + f_shift @ w_u))
+            out = out.reshape(b, gh, gw, patch, patch, cin)
+            return out.permute(0, 1, 3, 2, 4, 5).reshape(b, hh, ww, cin)
 
     return apply

@@ -48,6 +48,7 @@ from . import compose
 from .ops.divergence import PROBE_KINDS, draw_probe, exact_div, value_and_div
 from .rng import as_draws
 from .schedules import DDPMSchedule, VPSchedule, linspace
+from .utils.profiling import annotate
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -118,9 +119,10 @@ def ddim(eps_fn: EpsFn, schedule: VPSchedule, x_init: torch.Tensor,
             return s * x + a * out
         return out
 
-    x = x_init
-    for i, (a0, s0, a1, s1, s0_pos, sig_i, coef_i, s1_pos) in enumerate(rows):
-        out = eps_fn(x, ts[i])
+    def update(i, x, out, row):
+        """Step i's x0, clamp and update (and its corrector) from the
+        closure's ``out`` at x."""
+        a0, s0, a1, s1, s0_pos, sig_i, coef_i, s1_pos = row
         if predict == "x0":
             x0 = out
         elif predict == "v":
@@ -149,6 +151,14 @@ def ddim(eps_fn: EpsFn, schedule: VPSchedule, x_init: torch.Tensor,
                 e = 2.0 * (corrector_snr * z_norm
                            / g_norm.clamp(min=1e-20)) ** 2
                 x = x + e * score + torch.sqrt(2.0 * e) * z
+        return x
+
+    x = x_init
+    for i, row in enumerate(rows):
+        with annotate("cdm.ddim.step"):
+            out = eps_fn(x, ts[i])
+            with annotate("cdm.ddim.update"):
+                x = update(i, x, out, row)
     return x
 
 
